@@ -1,0 +1,404 @@
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+The main path is the paper's deployment stack ``RAE64,Flat,Rerank4``
+through the port's entry points (``repro_torch.api``): fit the RAE, encode
+the corpus and the queries (the hand-written ``rae_encode`` kernel), scan
+the reduced corpus for the stage-1 top-k (the hand-written ``l2_topk``
+kernel), rerank exactly in the full space. Three phases:
+
+1. kernels against their plain PyTorch versions on the card;
+2. acceptance at the reference's bar: recall@10 >= 0.9 on the 20k x 256
+   corpus, and save / ``load_index`` answering identically;
+3. full size: the paper's 768-d ``imdb_like`` corpus at 1M rows and its
+   3000-step schedule, 1024 queries in batches of 256, the kernel path's
+   ids against the plain path's, and each kernel's time beside its bound,
+   its plain version's and the PyTorch library call's.
+
+Every launch counter is set to 0 just before phase 3 drives the main path
+and read just after; a kernel of the path that did not launch fails the
+run. The last lines are a ``kernels`` JSON object, the card's name and
+power limit, and ``{"ok": true, "device": ...}``. Any failure raises (exit
+code 1); without a CUDA card the script exits with code 2 before any
+result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): float32
+# outside the tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# kernel vs plain: float32 sums in another order; ids must be equal
+ENCODE_TOL = 1e-4   # |kernel - plain| <= ENCODE_TOL * max(1, max |plain|)
+SCORE_TOL = 1e-4    # same rule for the scan's scores
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    return err, err / scale
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: each kernel against its plain version, on the card
+# ---------------------------------------------------------------------------
+def phase_kernels(g: torch.Generator) -> dict[str, float]:
+    from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.kernels.l2_topk.ref import l2_topk_ref
+    from repro_torch.kernels.rae_encode import rae_encode
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+
+    errs = {"rae_encode": 0.0, "l2_topk": 0.0}
+    for rows, n, m in [(4096, 768, 64), (4096, 768, 384)]:
+        x = torch.randn(rows, n, device="cuda", generator=g)
+        w = torch.randn(n, m, device="cuda", generator=g) / n ** 0.5
+        for normalize in (False, True):
+            z = rae_encode(x, w, normalize=normalize)
+            sync()
+            err, rel = max_rel_err(z, rae_encode_ref(x, w, normalize))
+            errs["rae_encode"] = max(errs["rae_encode"], err)
+            log(f"phase 1: rae_encode [{rows},{n}]@[{n},{m}] "
+                f"normalize={normalize}: max_abs_err {err:.3e}")
+            check(rel <= ENCODE_TOL, f"rae_encode {rows}x{n}x{m} "
+                                     f"normalize={normalize}: err {err}")
+    nq, n, d = 257, 100_003, 64     # ragged against every tile size
+    q = torch.randn(nq, d, device="cuda", generator=g)
+    db = torch.randn(n, d, device="cuda", generator=g)
+    mask = torch.rand(n, device="cuda", generator=g) > 0.25
+    for k in (1, 10, 40, 2048):
+        for metric in ("euclidean", "cosine"):
+            for db_mask in (None, mask):
+                v, i = l2_topk(q, db, k, metric=metric, db_mask=db_mask)
+                sync()
+                vr, ir = l2_topk_ref(q, db, k, metric=metric,
+                                     db_mask=db_mask)
+                same = int((i == ir).sum())
+                err, rel = max_rel_err(v, vr)
+                errs["l2_topk"] = max(errs["l2_topk"], err)
+                log(f"phase 1: l2_topk Q={nq} N={n} d={d} k={k} {metric} "
+                    f"mask={db_mask is not None}: ids equal {same}/"
+                    f"{i.numel()}, max_abs_err {err:.3e}")
+                check(same == i.numel(), f"l2_topk ids k={k} {metric}")
+                check(rel <= SCORE_TOL, f"l2_topk scores k={k} {metric}")
+                if db_mask is not None:
+                    dead = torch.nonzero(~mask).flatten().to(torch.int32)
+                    check(not torch.isin(i, dead).any().item(),
+                          "a tombstoned row surfaced")
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: acceptance at the reference's bar (tests/test_api.py)
+# ---------------------------------------------------------------------------
+def acceptance_data() -> tuple[np.ndarray, np.ndarray]:
+    """The 20k x 256 corpus and the 64 queries of tests/conftest.py."""
+    from repro_torch.data import embedding_corpus
+
+    corpus = embedding_corpus(20000, 256, n_clusters=16, intrinsic=64,
+                              seed=0)
+    rng = np.random.default_rng(1)
+    picks = rng.integers(0, 20000, 64)
+    noise = 0.01 * rng.standard_normal((64, 256)).astype(np.float32)
+    return corpus, corpus[picks] + noise
+
+
+def phase_acceptance(device: str, steps: int = 1000) -> float:
+    from repro_torch import api
+    from repro_torch.core import metrics
+
+    corpus, queries = acceptance_data()
+    t0 = time.perf_counter()
+    idx = api.index_factory("RAE64,Flat,Rerank4",
+                            reducer_kw={"steps": steps, "seed": 0},
+                            device=device)
+    idx.build(corpus)
+    res = idx.search(queries, 10)
+    gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
+                             torch.as_tensor(corpus, device=device), 10)
+    recall = metrics.recall_at_k(torch.as_tensor(res.indices, device=device),
+                                 gt)
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        res2 = api.load_index(tmp, device=device).search(queries, 10)
+    dt = time.perf_counter() - t0
+    log(f"phase 2: RAE64,Flat,Rerank4 on 20000x256, {steps} steps, 64 "
+        f"queries: recall@10 {recall:.4f}, reload identical "
+        f"{bool(np.array_equal(res2.indices, res.indices))}, {dt:.2f} s")
+    check(recall >= 0.9, f"acceptance recall@10 {recall} < 0.9")
+    check(np.array_equal(res2.indices, res.indices)
+          and np.array_equal(res2.scores, res.scores),
+          "load_index answers differ from the saved index's")
+    return recall
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: full size
+# ---------------------------------------------------------------------------
+def plain_path(idx, queries: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same stack with every kernel replaced by its plain version."""
+    from repro_torch.kernels.l2_topk.ref import l2_topk_ref
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+    from repro_torch.search.twostage import rerank_candidates
+
+    w_e = idx.reducer.params_["w_e"]
+    zc = rae_encode_ref(idx._db_full, w_e, False)
+    zq = rae_encode_ref(queries, w_e, False)
+    _, cand = l2_topk_ref(zq, zc, idx.stage1_k(k))
+    return rerank_candidates(queries, idx._db_full, cand, k, idx.metric)
+
+
+def phase_full(n: int, n_queries: int, batch: int, steps: int,
+               device: str) -> dict:
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.data import paper_dataset
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+
+    t0 = time.perf_counter()
+    data = paper_dataset("imdb_like", n=n + n_queries, seed=0)
+    corpus, queries = data[:n], data[n:]   # held-out queries (rows shuffled)
+    t_data = time.perf_counter() - t0
+    idx = api.index_factory("RAE64,Flat,Rerank4",
+                            reducer_kw={"steps": steps, "batch_size": 128,
+                                        "seed": 0}, device=device)
+    launches = {}
+
+    # the main path, with every launch counter from 0
+    rae_encode_cuda.launches = 0
+    l2_topk_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    idx.build(corpus)
+    sync()
+    t_build = time.perf_counter() - t0
+    launches["build"] = {"rae_encode": rae_encode_cuda.launches,
+                         "l2_topk": l2_topk_scan_cuda.launches}
+    results, lat = [], []
+    for s in range(0, n_queries, batch):
+        res = idx.search(queries[s:s + batch], 10)
+        results.append(res)
+        lat.append(res.latency_s)
+    launches["total"] = {"rae_encode": rae_encode_cuda.launches,
+                         "l2_topk": l2_topk_scan_cuda.launches}
+    launches["search"] = {k: launches["total"][k] - launches["build"][k]
+                          for k in launches["total"]}
+    batches = len(results)
+    log(f"phase 3: main-path launches: build {launches['build']}, "
+        f"{batches} searches {launches['search']}")
+    check(all(v > 0 for v in launches["total"].values()),
+          f"a kernel of the main path never launched: {launches['total']}")
+    check(launches["search"]["l2_topk"] == batches
+          and launches["search"]["rae_encode"] == batches,
+          "each search launches rae_encode and l2_topk once")
+
+    ids = np.concatenate([r.indices for r in results])
+    scores = np.concatenate([r.scores for r in results])
+    check(ids.shape == (n_queries, 10) and np.isfinite(scores).all()
+          and (ids >= 0).all() and (ids < n).all(),
+          "full-size answers: shape, finite scores, ids in range")
+
+    # one query at a time, as an unbatched client sends them
+    lat1 = [idx.search(queries[i:i + 1], 10).latency_s for i in range(32)]
+    # layers of one search batch, each timed on its own
+    qb = torch.as_tensor(queries[:batch], device=device)
+    k1 = idx.stage1_k(10)
+    zq = idx.reducer.transform(qb)
+    sync()
+    t0 = time.perf_counter()
+    zq = idx.reducer.transform(qb)
+    sync()
+    t_encode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage1 = idx.base.search(zq, k1)
+    t_scan = time.perf_counter() - t0
+    from repro_torch.search.twostage import rerank_candidates
+    cand = torch.as_tensor(stage1.indices, device=device)
+    sync()
+    t0 = time.perf_counter()
+    rerank_candidates(qb, idx._db_full, cand, 10, idx.metric)
+    sync()
+    t_rerank = time.perf_counter() - t0
+
+    # recall against the exact full-space scan (plain, not the main path)
+    t0 = time.perf_counter()
+    qt = torch.as_tensor(queries, device=device)
+    gt = metrics.knn_indices(qt, idx._db_full, 10)
+    recall = metrics.recall_at_k(torch.as_tensor(ids, device=device), gt)
+    t_gt = time.perf_counter() - t0
+    # the kernel path against the plain path, first 128 queries
+    _, plain_ids = plain_path(idx, qt[:128], 10)
+    same = int((torch.as_tensor(ids[:128], device=device)
+                == plain_ids).sum())
+    log(f"phase 3: imdb_like n={n} d=768 RAE64,Flat,Rerank4 (no cut), "
+        f"{steps} steps batch 128; {n_queries} queries k=10 in batches of "
+        f"{batch}: recall@10 {recall:.4f}; kernel ids == plain ids on 128 "
+        f"queries: {same}/1280")
+    log(f"phase 3: times: data {t_data:.2f} s, build {t_build:.2f} s "
+        f"(fit + corpus encode + Flat build), search latency per batch "
+        f"median {float(np.median(lat)) * 1e3:.3f} ms max "
+        f"{max(lat) * 1e3:.3f} ms, single-query latency median "
+        f"{float(np.median(lat1)) * 1e3:.3f} ms over 32; one batch's "
+        f"layers: encode "
+        f"{t_encode * 1e3:.3f} ms, scan {stage1.latency_s * 1e3:.3f} ms "
+        f"(wall {t_scan * 1e3:.3f} ms), rerank {t_rerank * 1e3:.3f} ms; "
+        f"exact ground truth {t_gt:.2f} s")
+    check(same == 1280, "kernel path ids differ from the plain path's")
+    return {"idx": idx, "qb": qb, "zq": zq, "k1": k1, "launches": launches,
+            "recall": recall}
+
+
+def kernel_times(full: dict) -> list[dict]:
+    """Each kernel at the main path's full-size shapes: its time, its plain
+    version's, one PyTorch library call's, and its bound."""
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+    from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref, prepare
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+
+    idx = full["idx"]
+    x, w = idx._db_full, idx.reducer.params_["w_e"]
+    rows, n = x.shape
+    m = w.shape[1]
+    enc_ms = cuda_ms(lambda: rae_encode_cuda(x, w, False), reps=10)
+    enc_plain = cuda_ms(lambda: rae_encode_ref(x, w, False), reps=10)
+    enc_lib = cuda_ms(lambda: torch.matmul(x, w), reps=10)
+    enc_bound, enc_by = bound(4.0 * (rows * n + n * m + rows * m),
+                              2.0 * rows * n * m)
+    log(f"phase 3: rae_encode [{rows},{n}]@[{n},{m}]: kernel {enc_ms:.4f} "
+        f"ms, plain {enc_plain:.4f} ms, torch.matmul {enc_lib:.4f} ms, "
+        f"bound {enc_bound:.4f} ms ({enc_by})")
+
+    q, d, d_sq = prepare(full["zq"], idx.base._db, "euclidean", None)
+    nq, dim = q.shape
+    nrow, k = d.shape[0], full["k1"]
+    scan_ms = cuda_ms(lambda: l2_topk_scan_cuda(q, d, d_sq, k), reps=10)
+    scan_plain = cuda_ms(lambda: l2_topk_scan_ref(q, d, d_sq, k), reps=3)
+    scan_lib = cuda_ms(lambda: torch.topk(2.0 * (q @ d.T) - d_sq, k),
+                       reps=10)
+    scan_bound, scan_by = bound(
+        4.0 * (nq * dim + nrow * dim + nrow) + 8.0 * nq * k,
+        2.0 * nq * nrow * dim + 2.0 * nq * nrow)
+    log(f"phase 3: l2_topk Q={nq} N={nrow} d={dim} k={k}: kernel "
+        f"{scan_ms:.4f} ms, plain {scan_plain:.4f} ms, torch.matmul + "
+        f"torch.topk {scan_lib:.4f} ms, bound {scan_bound:.4f} ms "
+        f"({scan_by})")
+    top = 2048  # the top rung of rerank_k1 (KNOB_LADDER)
+    log(f"phase 3: l2_topk Q={nq} N={nrow} d={dim} k={top}: kernel "
+        f"{cuda_ms(lambda: l2_topk_scan_cuda(q, d, d_sq, top), reps=5):.4f}"
+        f" ms, torch.matmul + torch.topk "
+        f"{cuda_ms(lambda: torch.topk(2.0 * (q @ d.T) - d_sq, top), reps=5):.4f}"
+        f" ms")
+    launches = full["launches"]["total"]
+    return [
+        {"name": "rae_encode", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rae_encode.cu",
+         "replaces": "src/repro/kernels/rae_encode/kernel.py:39",
+         "launches": launches["rae_encode"], "ms": enc_ms,
+         "plain_ms": enc_plain, "bound_ms": enc_bound, "bound_by": enc_by,
+         "library_ms": enc_lib},
+        {"name": "l2_topk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/l2_topk.cu",
+         "replaces": "src/repro/kernels/l2_topk/kernel.py:82",
+         "launches": launches["l2_topk"], "ms": scan_ms,
+         "plain_ms": scan_plain, "bound_ms": scan_bound, "bound_by": scan_by,
+         "library_ms": scan_lib},
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
+              "false); nothing was run", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from repro_torch.kernels import _build
+
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    libs = _build.build()
+    log(f"build: {', '.join(p.name for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, in parallel)")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    t0 = time.perf_counter()
+    errs = phase_kernels(g)
+    log(f"phase 1: ok in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_acceptance("cuda")
+    log(f"phase 2: ok in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    full = phase_full(n=1_000_000, n_queries=1024, batch=256, steps=3000,
+                      device="cuda")
+    kernels = kernel_times(full)
+    for entry in kernels:
+        entry["max_abs_err"] = errs[entry["name"]]
+    log(f"phase 3: ok in {time.perf_counter() - t0:.2f} s")
+    log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

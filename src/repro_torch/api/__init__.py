@@ -1,0 +1,47 @@
+"""Retrieval API of the port: ``Reducer`` + ``VectorIndex`` (FAISS-style),
+the counterpart of ``repro.api`` for the stages ported so far."""
+from .reducer import (
+    RAEReducer,
+    Reducer,
+    get_reducer,
+    list_reducers,
+    load_reducer,
+    make_reducer,
+    register_reducer,
+)
+from .index import (
+    KNOB_LADDER,
+    FlatIndex,
+    SearchParams,
+    SearchResult,
+    TwoStageIndex,
+    VectorIndex,
+    load_index,
+    next_rung,
+    register_index,
+    snap_knob,
+)
+from .factory import IndexSpec, index_factory, parse_index_spec
+
+__all__ = [
+    "FlatIndex",
+    "IndexSpec",
+    "KNOB_LADDER",
+    "RAEReducer",
+    "Reducer",
+    "SearchParams",
+    "SearchResult",
+    "TwoStageIndex",
+    "VectorIndex",
+    "get_reducer",
+    "index_factory",
+    "list_reducers",
+    "load_index",
+    "load_reducer",
+    "make_reducer",
+    "next_rung",
+    "parse_index_spec",
+    "register_index",
+    "register_reducer",
+    "snap_knob",
+]

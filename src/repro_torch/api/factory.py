@@ -1,0 +1,239 @@
+"""FAISS-style ``index_factory``: build an index stack from a spec string.
+
+The reference's grammar, parsed in full (comma-separated stages,
+case-insensitive)::
+
+    spec     := ["Mut" ","] [reducer ","] [shard ","] stack ["," rerank]
+    stack    := base | quant | base "," quant
+    reducer  := ("RAE" | "PCA" | "RP" | "MDS" | "ISOMAP" | "UMAP") out_dim
+    shard    := "Shard" n_shards
+    base     := "Flat" | "IVF" n_cells | "HNSW" M
+    quant    := "SQ8" | "PQ" m "x" bits     # bits in 1..8
+    rerank   := "Rerank" factor             # requires a reducer stage
+
+``index_factory`` builds ``[RAE<m>,]Flat[,Rerank<f>]``; every other stage
+raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
+it. ``str(spec)`` renders a parsed spec back canonically.
+"""
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+
+from .index import FlatIndex, TwoStageIndex, VectorIndex
+from .reducer import list_reducers, make_reducer
+
+_TOKEN = re.compile(r"^([A-Za-z_]+?)(\d+)?$")
+_PQ = re.compile(r"^pq(\d+)x(\d+)$", re.IGNORECASE)
+
+#: Reducer names of the reference's grammar; only those registered in this
+#: package build (``rae``), the rest parse and wait for ROADMAP.md A item 8.
+_GRAMMAR_REDUCERS = ("isomap", "mds", "pca", "rae", "rp", "umap")
+
+
+@dataclass(frozen=True)
+class IndexSpec:
+    """Parsed form of a factory spec string. ``str(spec)`` renders the
+    canonical spec string, so ``parse_index_spec(str(spec)) == spec``."""
+
+    reducer: Optional[str] = None     # registry name, e.g. "rae"
+    out_dim: int = 0                  # reducer target dim
+    base: str = "flat"                # "flat" | "ivf" | "hnsw"
+    n_cells: int = 0                  # ivf only
+    quant: Optional[str] = None       # None | "sq8" | "pq"
+    pq_m: int = 0                     # pq only: subspace count
+    pq_bits: int = 0                  # pq only: bits per code
+    rerank_factor: int = 1
+    hnsw_m: int = 0                   # hnsw only: degree cap M
+    shards: int = 0                   # 0 = unsharded
+    mutable: bool = False             # Mut prefix: MutableIndex wrapper
+
+    def __str__(self) -> str:
+        parts = []
+        if self.mutable:
+            parts.append("Mut")
+        if self.reducer is not None:
+            parts.append(f"{self.reducer.upper()}{self.out_dim}")
+        if self.shards:
+            parts.append(f"Shard{self.shards}")
+        if self.base == "ivf":
+            parts.append(f"IVF{self.n_cells}")
+        elif self.base == "hnsw":
+            parts.append(f"HNSW{self.hnsw_m}")
+        else:
+            parts.append("Flat")
+        if self.quant == "sq8":
+            parts.append("SQ8")
+        elif self.quant == "pq":
+            parts.append(f"PQ{self.pq_m}x{self.pq_bits}")
+        if self.rerank_factor > 1:
+            parts.append(f"Rerank{self.rerank_factor}")
+        return ",".join(parts)
+
+
+def _fail(spec: str, why: str):
+    raise ValueError(f"bad index spec {spec!r}: {why}")
+
+
+def parse_index_spec(spec: str) -> IndexSpec:
+    tokens = [t.strip() for t in spec.split(",")]
+    if not spec.strip() or any(not t for t in tokens):
+        _fail(spec, "empty stage")
+    reducers = sorted(set(_GRAMMAR_REDUCERS) | set(list_reducers()))
+    reducer: Optional[str] = None
+    out_dim = 0
+    base: Optional[str] = None
+    n_cells = 0
+    quant: Optional[str] = None
+    pq_m = pq_bits = 0
+    rerank = 0
+    hnsw_m = 0
+    shards = 0
+    mutable = False
+
+    def check_order(stage):
+        if rerank:
+            _fail(spec, "Rerank must come last")
+        if quant is not None and stage in ("base", "quant"):
+            _fail(spec, "quantizer must be the last storage stage")
+
+    for tok in tokens:
+        pq = _PQ.match(tok)
+        if pq:
+            check_order("quant")
+            m_, bits_ = int(pq.group(1)), int(pq.group(2))
+            if m_ <= 0:
+                _fail(spec, "PQ needs at least one subspace, e.g. PQ8x8")
+            if not 1 <= bits_ <= 8:
+                _fail(spec, f"PQ bits must be in 1..8, got {bits_}")
+            quant, pq_m, pq_bits = "pq", m_, bits_
+            continue
+        m = _TOKEN.match(tok)
+        if not m:
+            _fail(spec, f"unparseable stage {tok!r}")
+        name, num = m.group(1).lower(), m.group(2)
+        if name == "sq":
+            if num != "8":
+                _fail(spec, f"only SQ8 is supported, got {tok!r}")
+            check_order("quant")
+            quant = "sq8"
+        elif name == "flat":
+            if num is not None:
+                _fail(spec, "Flat takes no parameter")
+            if base is not None:
+                _fail(spec, "multiple base stages")
+            check_order("base")
+            base = "flat"
+        elif name == "ivf":
+            if num is None:
+                _fail(spec, "IVF needs a cell count, e.g. IVF256")
+            if base is not None:
+                _fail(spec, "multiple base stages")
+            check_order("base")
+            base, n_cells = "ivf", int(num)
+        elif name == "hnsw":
+            if num is None:
+                _fail(spec, "HNSW needs a degree cap, e.g. HNSW32")
+            if int(num) < 2:
+                _fail(spec, f"HNSW needs M >= 2, got {tok!r}")
+            if base is not None:
+                _fail(spec, "multiple base stages")
+            check_order("base")
+            base, hnsw_m = "hnsw", int(num)
+        elif name == "shard":
+            if num is None:
+                _fail(spec, "Shard needs a shard count, e.g. Shard8")
+            if int(num) < 1:
+                _fail(spec, f"Shard needs at least one shard, got {tok!r}")
+            if shards:
+                _fail(spec, "multiple Shard stages")
+            if base is not None or quant is not None:
+                _fail(spec, "Shard must come before the base stage "
+                            "(it partitions the storage stack)")
+            check_order("base")
+            shards = int(num)
+        elif name == "mut":
+            if num is not None:
+                _fail(spec, "Mut takes no parameter")
+            if mutable:
+                _fail(spec, "multiple Mut stages")
+            if (reducer is not None or base is not None or quant is not None
+                    or shards or rerank):
+                _fail(spec, "Mut must come first (it wraps the whole stack)")
+            mutable = True
+        elif name == "rerank":
+            if num is None:
+                _fail(spec, "Rerank needs a factor, e.g. Rerank4")
+            if rerank:
+                _fail(spec, "multiple Rerank stages")
+            rerank = int(num)
+        elif name in reducers:
+            if num is None:
+                _fail(spec, f"reducer {name!r} needs a target dim, "
+                            f"e.g. {name.upper()}64")
+            if reducer is not None:
+                _fail(spec, "multiple reducer stages")
+            if base is not None or quant is not None or shards:
+                _fail(spec, "reducer must come before the base stage")
+            reducer, out_dim = name, int(num)
+        else:
+            _fail(spec, f"unknown stage {tok!r} "
+                        f"(reducers: {reducers}; bases: flat, ivf, "
+                        f"hnsw; quantizers: sq8, pq<m>x<bits>)")
+    if base is None and quant is None and not shards:
+        _fail(spec, "no base stage (Flat, IVF<n>, HNSW<M>, SQ8 or "
+                    "PQ<m>x<bits>)")
+    if rerank and reducer is None:
+        _fail(spec, "Rerank requires a reducer stage to rerank against")
+    if out_dim <= 0 and reducer is not None:
+        _fail(spec, "reducer target dim must be positive")
+    return IndexSpec(reducer=reducer, out_dim=out_dim, base=base or "flat",
+                     n_cells=n_cells, quant=quant, pq_m=pq_m,
+                     pq_bits=pq_bits, rerank_factor=rerank or 1,
+                     hnsw_m=hnsw_m, shards=shards, mutable=mutable)
+
+
+def _not_ported(parsed: IndexSpec) -> Optional[str]:
+    """The ROADMAP.md item that ports the first unported stage, if any."""
+    if parsed.mutable:
+        return "Mut (live mutation): ROADMAP.md queue A item 11"
+    if parsed.shards:
+        return "Shard<S> (sharding): ROADMAP.md queue A item 10"
+    if parsed.quant is not None:
+        return "SQ8 / PQ<m>x<bits> (quantized tiers): ROADMAP.md queue A " \
+               "item 9"
+    if parsed.base == "ivf":
+        return "IVF<n>: ROADMAP.md queue A item 5"
+    if parsed.base == "hnsw":
+        return "HNSW<M>: ROADMAP.md queue A item 6"
+    if parsed.reducer is not None and parsed.reducer not in list_reducers():
+        return f"reducer {parsed.reducer.upper()} (baseline reducers): " \
+               f"ROADMAP.md queue A item 8"
+    return None
+
+
+def index_factory(spec: str, *, metric: str = "euclidean",
+                  reducer_kw: Optional[dict[str, Any]] = None,
+                  index_kw: Optional[dict[str, Any]] = None,
+                  device: str | torch.device = "cuda") -> VectorIndex:
+    """Build an (unbuilt) index stack from ``spec`` on ``device``.
+
+    ``reducer_kw`` is forwarded to the reducer constructor (e.g. RAE's
+    ``steps`` / ``seed``); ``index_kw`` to the base index. Call
+    ``.build(corpus)`` on the result."""
+    parsed = parse_index_spec(spec)
+    missing = _not_ported(parsed)
+    if missing is not None:
+        raise NotImplementedError(f"{spec!r}: stage {missing}")
+    stack: VectorIndex = FlatIndex(metric=metric, device=device,
+                                   **dict(index_kw or {}))
+    if parsed.reducer is not None:
+        reducer = make_reducer(parsed.reducer, parsed.out_dim, device=device,
+                               **dict(reducer_kw or {}))
+        stack = TwoStageIndex(reducer, stack,
+                              rerank_factor=parsed.rerank_factor,
+                              metric=metric, device=device)
+    return stack

@@ -1,0 +1,438 @@
+"""``VectorIndex``: one build/search/save/load interface for the search tiers.
+
+``FlatIndex`` is the exact scan (``search.distributed``: the ``l2_topk``
+kernel on the card) and ``TwoStageIndex`` composes a
+:class:`~repro_torch.api.reducer.Reducer` with a base index: reduced-space
+candidate generation, full-space rerank (the paper's deployment stack).
+The IVF, HNSW, quantized, sharded and mutable tiers are not ported yet
+(``ROADMAP.md`` queue A).
+
+Indexes keep their vectors on ``device`` (default ``"cuda"``). ``search``
+takes numpy arrays or tensors and returns a :class:`SearchResult` of
+numpy arrays with device-synchronized wall latency. Scores follow the
+engine convention: higher = closer.
+
+Persistence layout is the reference's (``meta.json`` + ``arrays.npz`` per
+directory, ``TwoStageIndex`` nesting ``reducer/`` and ``base/``), so
+``load_index`` reads what either package saved.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from ..search import distributed as ds
+from ..search import twostage as ts_lib
+from .reducer import Reducer, as_device_tensor, load_reducer
+
+_META = "meta.json"
+_ARRAYS = "arrays.npz"
+
+
+#: Geometric ladder every per-call knob snaps to — each rung ~1.5x the
+#: previous (8*2^i interleaved with 12*2^i), as in the reference, so a
+#: tuned operating point means the same knob values in both packages.
+KNOB_LADDER = (8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512,
+               768, 1024, 1536, 2048)
+
+
+def snap_knob(value: int) -> int:
+    """Round ``value`` UP to its :data:`KNOB_LADDER` rung (a snapped knob
+    always does at least the work asked for); past the top rung, clamp."""
+    v = int(value)
+    for rung in KNOB_LADDER:
+        if rung >= v:
+            return rung
+    return KNOB_LADDER[-1]
+
+
+def next_rung(value: int) -> int:
+    """The ladder rung strictly above ``value``'s — the escalation step.
+    The top rung escalates to itself."""
+    snapped = snap_knob(value)
+    i = KNOB_LADDER.index(snapped)
+    return KNOB_LADDER[min(i + 1, len(KNOB_LADDER) - 1)]
+
+
+@dataclass(frozen=True)
+class SearchParams:
+    """Per-call search-knob overrides (``params=`` of every ``search``).
+    ``None`` leaves a knob at the index's default; each tier consumes the
+    knobs it understands and forwards the rest down its stack. Values snap
+    UP to :data:`KNOB_LADDER` at construction."""
+
+    ef_search: Optional[int] = None
+    nprobe: Optional[int] = None
+    rerank_k1: Optional[int] = None
+
+    def __post_init__(self):
+        for name in ("ef_search", "nprobe", "rerank_k1"):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            if int(v) < 1:
+                raise ValueError(f"SearchParams.{name} must be >= 1, "
+                                 f"got {v}")
+            object.__setattr__(self, name, snap_knob(v))
+
+
+@dataclass
+class SearchResult:
+    """Uniform k-NN result: ``scores``/``indices`` are [Q, k] numpy arrays;
+    higher score = closer; ``latency_s`` is device-synchronized wall time.
+    ``stats["distance_evals"]`` is the mean number of corpus vectors scored
+    per query."""
+
+    scores: np.ndarray
+    indices: np.ndarray
+    latency_s: float
+    stats: dict[str, float] = field(default_factory=dict)
+
+    @property
+    def k(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def distance_evals(self) -> Optional[float]:
+        """Mean distance evaluations per query (None if not reported)."""
+        return self.stats.get("distance_evals")
+
+
+# ---------------------------------------------------------------------------
+# Registry / persistence plumbing
+# ---------------------------------------------------------------------------
+_INDEXES: dict[str, type] = {}
+
+
+def register_index(name: str):
+    def deco(cls):
+        _INDEXES[name.lower()] = cls
+        cls.kind = name.lower()
+        return cls
+
+    return deco
+
+
+def load_index(directory: str, device: str | torch.device = "cuda"
+               ) -> "VectorIndex":
+    with open(os.path.join(directory, _META)) as f:
+        meta = json.load(f)
+    try:
+        cls = _INDEXES[meta["kind"]]
+    except KeyError:
+        raise KeyError(f"unknown index kind {meta['kind']!r}; "
+                       f"known: {sorted(_INDEXES)}") from None
+    return cls._load(directory, meta, device)
+
+
+def _save_dir(directory: str, meta: dict[str, Any],
+              arrays: dict[str, np.ndarray]) -> None:
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, _META), "w") as f:
+        json.dump(meta, f, indent=1)
+    np.savez(os.path.join(directory, _ARRAYS), **arrays)
+
+
+def _load_arrays(directory: str) -> dict[str, np.ndarray]:
+    with np.load(os.path.join(directory, _ARRAYS)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _numpy(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class VectorIndex:
+    """Base class: ``build(corpus)`` then ``search(queries, k)``."""
+
+    kind: str = "abstract"
+
+    #: Multiple of the rerank budget to fetch when serving as stage 1
+    #: under a rerank (lossy-ranking tiers override it).
+    stage1_oversample: int = 1
+
+    @property
+    def ntotal(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def built(self) -> bool:
+        raise NotImplementedError
+
+    @property
+    def bytes_per_vector(self) -> float:
+        raise NotImplementedError
+
+    @property
+    def dim(self) -> int:
+        raise NotImplementedError
+
+    def _fingerprint_state(self) -> list:
+        raise NotImplementedError
+
+    def fingerprint(self) -> str:
+        """Stable content hash of the built index; the same bytes as the
+        reference's for the same state."""
+        self._require_built()
+        h = hashlib.sha1()
+        h.update(f"{self.kind}:{self.ntotal}".encode())
+        for item in self._fingerprint_state():
+            if isinstance(item, str):
+                h.update(item.encode())
+            else:
+                a = _numpy(item)
+                h.update(f"{a.shape}:{a.dtype}".encode())
+                h.update(a.tobytes())
+        return h.hexdigest()[:16]
+
+    def build(self, corpus) -> "VectorIndex":
+        raise NotImplementedError
+
+    def search(self, queries, k: int, alive=None,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        """k-NN. ``alive`` (bool [ntotal], optional) tombstones rows: a
+        dead row never appears in the result, its slot padding to
+        (NEG_INF, -1). ``params`` overrides the tier's knobs for this call
+        only."""
+        raise NotImplementedError
+
+    def set_params(self, params: SearchParams) -> None:
+        """Apply ``params``'s set knobs as this index's new defaults."""
+        del params
+
+    def save(self, directory: str) -> None:
+        raise NotImplementedError
+
+    def _require_built(self):
+        if not self.built:
+            raise RuntimeError(f"{self.kind}: search before build")
+
+
+def _timed(fn: Callable[[], tuple[torch.Tensor, torch.Tensor]],
+           device: torch.device,
+           stats: Optional[dict[str, float]] = None) -> SearchResult:
+    """Wall time of the query, read after ``torch.cuda.synchronize`` —
+    otherwise the clock measures the enqueue, not the scan."""
+    _sync(device)
+    t0 = time.perf_counter()
+    scores, idx = fn()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    return SearchResult(scores=_numpy(scores), indices=_numpy(idx),
+                        latency_s=dt, stats=dict(stats or {}))
+
+
+# ---------------------------------------------------------------------------
+# Flat (exact scan)
+# ---------------------------------------------------------------------------
+@register_index("flat")
+class FlatIndex(VectorIndex):
+    """Exact k-NN over the stored corpus: on the card, one ``l2_topk``
+    kernel call per search."""
+
+    def __init__(self, metric: str = "euclidean",
+                 device: str | torch.device = "cuda"):
+        self.metric = metric
+        self.device = torch.device(device)
+        self._db: Optional[torch.Tensor] = None
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._db is None else int(self._db.shape[0])
+
+    @property
+    def built(self) -> bool:
+        return self._db is not None
+
+    @property
+    def bytes_per_vector(self) -> float:
+        self._require_built()
+        return float(self._db.shape[1] * self._db.element_size())
+
+    @property
+    def dim(self) -> int:
+        self._require_built()
+        return int(self._db.shape[1])
+
+    def _fingerprint_state(self) -> list:
+        return [self.metric, self._db]
+
+    def build(self, corpus) -> "FlatIndex":
+        self._db = as_device_tensor(corpus, self.device).contiguous()
+        return self
+
+    def add(self, vecs) -> None:
+        """Streaming insert: append rows; existing rows keep their ids."""
+        self._require_built()
+        self._db = torch.cat([self._db, as_device_tensor(vecs, self.device)])
+
+    def search(self, queries, k: int, alive=None,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        del params  # exact scan has no knobs: every row is always scored
+        self._require_built()
+        q = as_device_tensor(queries, self.device)
+        al = None if alive is None else torch.as_tensor(
+            np.asarray(_numpy(alive), bool), device=self.device)
+        return _timed(lambda: ds.search(q, self._db, min(k, self.ntotal),
+                                        metric=self.metric, alive=al),
+                      self.device,
+                      stats={"distance_evals": float(self.ntotal)})
+
+    def save(self, directory: str) -> None:
+        self._require_built()
+        _save_dir(directory, {"kind": self.kind, "metric": self.metric},
+                  {"db": _numpy(self._db)})
+
+    @classmethod
+    def _load(cls, directory: str, meta: dict[str, Any],
+              device: str | torch.device) -> "FlatIndex":
+        self = cls(metric=meta["metric"], device=device)
+        self._db = torch.as_tensor(_load_arrays(directory)["db"],
+                                   device=self.device)
+        return self
+
+
+# ---------------------------------------------------------------------------
+# TwoStage: reducer -> base index -> full-space rerank
+# ---------------------------------------------------------------------------
+@register_index("two_stage")
+class TwoStageIndex(VectorIndex):
+    """Compose a reducer with a base index.
+
+    ``build`` fits the reducer on the corpus (skipped if already fitted),
+    encodes the corpus into R^m and builds the base index over the REDUCED
+    vectors. ``search`` encodes the queries, fetches ``k * rerank_factor *
+    base.stage1_oversample`` candidates (or ``rerank_k1``) from the base
+    index, and reranks them with exact distances in the ORIGINAL space."""
+
+    def __init__(self, reducer: Reducer, base_index: VectorIndex,
+                 rerank_factor: int = 4, metric: str = "euclidean",
+                 rerank_k1: Optional[int] = None,
+                 device: str | torch.device = "cuda"):
+        self.reducer = reducer
+        self.base = base_index
+        self.rerank_factor = rerank_factor
+        self.metric = metric
+        # tuned absolute stage-1 budget; None = k * rerank_factor * oversample
+        self.rerank_k1 = None if rerank_k1 is None else snap_knob(rerank_k1)
+        self.device = torch.device(device)
+        self._db_full: Optional[torch.Tensor] = None
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._db_full is None else int(self._db_full.shape[0])
+
+    @property
+    def built(self) -> bool:
+        return self._db_full is not None and self.base.built
+
+    @property
+    def bytes_per_vector(self) -> float:
+        """Stage-1 payload only (the paper's deployment split)."""
+        return self.base.bytes_per_vector
+
+    @property
+    def dim(self) -> int:
+        """Queries arrive in the ORIGINAL space (the reducer encodes them)."""
+        self._require_built()
+        return int(self._db_full.shape[1])
+
+    def _fingerprint_state(self) -> list:
+        return [f"rerank={self.rerank_factor}:{self.rerank_k1}:{self.metric}",
+                f"reducer={self.reducer.fingerprint()}",
+                self.base.fingerprint(), self._db_full]
+
+    def build(self, corpus) -> "TwoStageIndex":
+        if not self.reducer.fitted:
+            self.reducer.fit(_numpy(corpus).astype(np.float32, copy=False))
+        full = as_device_tensor(corpus, self.device).contiguous()
+        self.base.build(self.reducer.transform(full))
+        self._db_full = full
+        return self
+
+    def add(self, vecs) -> None:
+        """Streaming insert: encode the new rows once, append them to the
+        base and to the full-space rerank store. The reducer is not
+        refit."""
+        self._require_built()
+        nv = as_device_tensor(vecs, self.device)
+        self.base.add(self.reducer.transform(nv))
+        self._db_full = torch.cat([self._db_full, nv])
+
+    def set_params(self, params: SearchParams) -> None:
+        """Adopt a tuned stage-1 budget and forward the rest down the
+        stack (``rerank_k1`` is fingerprint state)."""
+        if params.rerank_k1 is not None:
+            self.rerank_k1 = params.rerank_k1
+        self.base.set_params(params)
+
+    def stage1_k(self, k: int, params: Optional[SearchParams] = None) -> int:
+        """Candidates stage 1 fetches for a top-``k`` search: an explicit
+        (tuned / per-call) k1 beats the oversample formula; never below
+        ``min(k, ntotal)``, never above ``ntotal``."""
+        k_eff = min(k, self.ntotal)
+        pk1 = (self.rerank_k1 if params is None or params.rerank_k1 is None
+               else params.rerank_k1)
+        if pk1 is not None:
+            return min(max(int(pk1), k_eff), self.ntotal)
+        return min(k_eff * self.rerank_factor * self.base.stage1_oversample,
+                   self.ntotal)
+
+    def search(self, queries, k: int, alive=None,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        self._require_built()
+        _sync(self.device)
+        t0 = time.perf_counter()
+        q = as_device_tensor(queries, self.device)
+        zq = self.reducer.transform(q)
+        k1 = self.stage1_k(k, params)
+        # tombstones are enforced in stage 1, so the rerank can't resurface
+        # a deleted row
+        stage1 = self.base.search(zq, k1, alive=alive, params=params)
+        cand = torch.as_tensor(stage1.indices, device=self.device)
+        scores, idx = ts_lib.rerank_candidates(
+            q, self._db_full, cand, min(k, self.ntotal), self.metric)
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        s1_evals = stage1.stats.get("distance_evals", 0.0)
+        stats = dict(stage1.stats)
+        stats.update({"distance_evals": s1_evals + float(k1),
+                      "stage1_distance_evals": s1_evals,
+                      "rerank_evals": float(k1)})
+        return SearchResult(scores=_numpy(scores), indices=_numpy(idx),
+                            latency_s=dt, stats=stats)
+
+    def save(self, directory: str) -> None:
+        self._require_built()
+        _save_dir(directory, {"kind": self.kind,
+                              "rerank_factor": self.rerank_factor,
+                              "rerank_k1": self.rerank_k1,
+                              "metric": self.metric},
+                  {"db_full": _numpy(self._db_full)})
+        self.reducer.save(os.path.join(directory, "reducer"))
+        self.base.save(os.path.join(directory, "base"))
+
+    @classmethod
+    def _load(cls, directory: str, meta: dict[str, Any],
+              device: str | torch.device) -> "TwoStageIndex":
+        reducer = load_reducer(os.path.join(directory, "reducer"), device)
+        base = load_index(os.path.join(directory, "base"), device)
+        self = cls(reducer, base, rerank_factor=meta["rerank_factor"],
+                   metric=meta["metric"], rerank_k1=meta.get("rerank_k1"),
+                   device=device)
+        self._db_full = torch.as_tensor(_load_arrays(directory)["db_full"],
+                                        device=self.device)
+        return self

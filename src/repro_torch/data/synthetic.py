@@ -1,0 +1,77 @@
+"""Synthetic embedding corpora (numpy; the same seed gives the same bytes as
+the reference package's ``data/synthetic.py``, whose code this copies).
+
+``embedding_corpus`` is the paper-dataset analogue: anisotropic low-rank
+Gaussian mixture with a power-law singular spectrum and per-cluster rotations.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+# The paper's four datasets, by embedding dimension.
+PAPER_DATASETS = {
+    "imagenet_like": dict(dim=384, n_clusters=24, intrinsic=96),
+    "celeba_like": dict(dim=512, n_clusters=16, intrinsic=128),
+    "imdb_like": dict(dim=768, n_clusters=8, intrinsic=160),
+    "flickr_like": dict(dim=1024, n_clusters=12, intrinsic=224),
+}
+
+
+def embedding_corpus(
+    n: int,
+    dim: int,
+    n_clusters: int = 8,
+    intrinsic: Optional[int] = None,
+    spectrum_decay: float = 0.7,
+    noise: float = 0.02,
+    normalize: bool = False,
+    seed: int = 0,
+) -> np.ndarray:
+    """[n, dim] float32 embeddings: mixture of rotated low-rank Gaussians."""
+    rng = np.random.default_rng(seed)
+    r = intrinsic or max(dim // 4, 8)
+    # One dominant anisotropic spectrum shared across the corpus; clusters
+    # are centers within the dominant subspace plus small per-cluster basis
+    # perturbations.
+    spec = (np.arange(1, r + 1, dtype=np.float32) ** (-spectrum_decay))
+    shared, _ = np.linalg.qr(rng.normal(size=(dim, r)).astype(np.float32))
+    out = np.empty((n, dim), np.float32)
+    sizes = rng.multinomial(n, np.ones(n_clusters) / n_clusters)
+    start = 0
+    for c, sz in enumerate(sizes):
+        if sz == 0:
+            continue
+        # mild per-cluster rotation of the shared basis
+        pert = rng.normal(scale=0.15, size=(dim, r)).astype(np.float32)
+        basis, _ = np.linalg.qr(shared + pert)
+        # centers live in the dominant half of the shared subspace
+        cz = np.zeros(r, np.float32)
+        cz[: max(r // 2, 1)] = rng.normal(
+            scale=1.5, size=max(r // 2, 1)) * spec[: max(r // 2, 1)]
+        center = shared @ cz
+        z = rng.normal(size=(sz, r)).astype(np.float32) * spec[None, :]
+        x = z @ basis.T + center[None, :]
+        x += rng.normal(scale=noise, size=x.shape).astype(np.float32)
+        out[start:start + sz] = x
+        start += sz
+    rng.shuffle(out)
+    if normalize:
+        out /= np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
+    return out
+
+
+def paper_dataset(name: str, n: int, seed: int = 0, **overrides) -> np.ndarray:
+    kw = dict(PAPER_DATASETS[name])
+    kw.update(overrides)
+    return embedding_corpus(n=n, seed=seed, **kw)
+
+
+def train_test_split(x: np.ndarray, test_frac: float = 0.1, seed: int = 0
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """The paper's 9:1 split."""
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(x.shape[0])
+    n_test = int(round(x.shape[0] * test_frac))
+    return x[idx[n_test:]], x[idx[:n_test]]

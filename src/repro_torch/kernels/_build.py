@@ -1,0 +1,84 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch header, so
+``nvcc`` turns it into a shared library in seconds (with PyTorch's headers,
+through ``torch.utils.cpp_extension``, a build takes minutes). Libraries go to
+``kernels/build/`` (git-ignored), named by a hash of the source and the
+flags, so an edited source is rebuilt and a stale library never loads.
+Nothing here runs at import: the CPU-only test run imports every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+KERNELS = ("rae_encode", "l2_topk")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the port's "
+                           "CUDA kernels are built on a machine with the "
+                           "CUDA toolkit")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
+    """Compile every named kernel whose library is missing, all ``nvcc``
+    processes at once. The compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside each library as ``.log``.
+    Raises with the log when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: library_path(n) for n in names}
+    jobs = []
+    for name, lib in out.items():
+        if lib.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+        os.close(fd)
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, lib, tmp, log,
+                     subprocess.Popen(cmd, stdout=log,
+                                      stderr=subprocess.STDOUT)))
+    failed = []
+    for name, lib, tmp, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, lib)  # atomic: a concurrent loader sees all or none
+        else:
+            os.unlink(tmp)
+            failed.append(f"{name} (nvcc exit {rc}):\n"
+                          + lib.with_suffix(".log").read_text())
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed."""
+    return ctypes.CDLL(str(build((name,))[name]))

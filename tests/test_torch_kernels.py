@@ -1,0 +1,199 @@
+"""Parity of the port's kernel ops (``repro_torch.kernels``) with the
+reference's Pallas ops.
+
+On the CPU the port's ops run their plain PyTorch versions; the reference's
+run their Pallas kernels in interpret mode, as ``tests/test_kernels.py``
+runs them (small ``bq/bn/br/bk``, so every case exercises the padding).
+Inputs are made with numpy from a seed and handed to both.
+
+Tolerances: ids must be equal; scores within ``rtol=1e-5, atol=1e-4``
+(float32 sums taken in another order by XLA and by PyTorch). On an
+integer-valued corpus every product and sum is exact in float32, so scores
+must be bit-equal there, and ties must go to the lower id.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+torch.set_float32_matmul_precision("highest")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import l2_topk as jax_l2_topk  # noqa: E402
+from repro.kernels import rae_encode as jax_rae_encode  # noqa: E402
+from repro_torch.kernels import l2_topk, rae_encode  # noqa: E402
+from repro_torch.kernels.common import NEG_INF, PAD_ID  # noqa: E402
+from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale
+            ).astype(np.float32)
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a jax array and a torch tensor (bf16 rounds the
+    float32 values to nearest-even in both frameworks)."""
+    if dtype == "f32":
+        return jnp.asarray(x), torch.from_numpy(x.copy())
+    return (jnp.asarray(x, jnp.bfloat16),
+            torch.from_numpy(x.copy()).to(torch.bfloat16))
+
+
+# ---------------------------------------------------------------------------
+# rae_encode
+# ---------------------------------------------------------------------------
+# (rows, n, m, br, bk): ragged rows, ragged contraction, n = 1 (the
+# reference's parity cases) and the paper's widths at a few rows, in
+# float32 and with bf16 inputs
+ENCODE_CASES = [(77, 64, 16, 64, 64), (64, 129, 16, 64, 128),
+                (32, 1, 8, 32, 128), (40, 768, 64, 32, 256)]
+ENCODE_PARAMS = [(ENCODE_CASES[0], False, "f32"),
+                 (ENCODE_CASES[0], True, "f32"),
+                 (ENCODE_CASES[1], True, "f32"),
+                 (ENCODE_CASES[2], True, "f32"),
+                 (ENCODE_CASES[3], False, "f32"),
+                 (ENCODE_CASES[0], True, "bf16"),
+                 (ENCODE_CASES[1], False, "bf16")]
+
+
+@pytest.mark.parametrize(
+    "case,normalize,dtype", ENCODE_PARAMS,
+    ids=[f"{c[0]}x{c[1]}x{c[2]}-{'norm' if nm else 'raw'}-{dt}"
+         for c, nm, dt in ENCODE_PARAMS])
+def test_rae_encode_matches_pallas(case, normalize, dtype):
+    rows, n, m, br, bk = case
+    xj, xt = _pair(_normal(rows, (rows, n)), dtype)
+    wj, wt = _pair(_normal(n + 1, (n, m), 0.05), dtype)
+    want = jax_rae_encode(xj, wj, normalize=normalize, impl="pallas", br=br,
+                          bk=bk, interpret=True)
+    got = rae_encode(xt, wt, normalize=normalize)
+    assert got.dtype == torch.float32 and got.shape == (rows, m)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_rae_encode_integer_inputs_bit_equal():
+    # the shapes of ENCODE_CASES[0], so the reference's compile is reused
+    rng = np.random.default_rng(3)
+    x = rng.integers(-3, 4, (77, 64)).astype(np.float32)
+    w = rng.integers(-2, 3, (64, 16)).astype(np.float32)
+    want = jax_rae_encode(jnp.asarray(x), jnp.asarray(w), normalize=False,
+                          impl="pallas", br=64, bk=64, interpret=True)
+    got = rae_encode(torch.from_numpy(x), torch.from_numpy(w),
+                     normalize=False)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_rae_encode_default_normalizes_like_pallas_op():
+    x, w = _normal(1, (8, 16)), _normal(2, (16, 4))
+    z = rae_encode(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(np.linalg.norm(z, axis=1), 1.0, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# l2_topk
+# ---------------------------------------------------------------------------
+# (q, n, d, k, bq, bn): ragged N, ragged Q, d = 1 (the reference's parity
+# cases), k > N, k = 1, and the rerank-4 stage-1 k at the reduced width;
+# float32 all, bf16 inputs on ragged N and k > N
+TOPK_CASES = [(32, 333, 16, 5, 32, 128), (19, 256, 16, 5, 32, 128),
+              (16, 100, 1, 3, 16, 32), (4, 6, 2, 10, 8, 8),
+              (9, 200, 8, 1, 8, 64), (24, 300, 64, 40, 8, 128)]
+TOPK_PARAMS = ([(c, "f32") for c in TOPK_CASES]
+               + [(TOPK_CASES[0], "bf16"), (TOPK_CASES[3], "bf16")])
+
+
+def _topk_both(q, n, d, k, bq, bn, dtype="f32", metric="euclidean",
+               mask=None):
+    qj, qt = _pair(_normal(q + n, (q, d)), dtype)
+    dj, dt = _pair(_normal(n, (n, d)), dtype)
+    mj = None if mask is None else jnp.asarray(mask)
+    mt = None if mask is None else torch.from_numpy(mask)
+    want = jax_l2_topk(qj, dj, k, metric=metric, db_mask=mj, impl="pallas",
+                       bq=bq, bn=bn, interpret=True)
+    got = l2_topk(qt, dt, k, metric=metric, db_mask=mt)
+    return got, tuple(np.asarray(w) for w in want)
+
+
+def _assert_topk_equal(got, want):
+    v, i = got[0].numpy(), got[1].numpy()
+    assert i.dtype == np.int32 and v.dtype == np.float32
+    np.testing.assert_array_equal(i, want[1])
+    np.testing.assert_allclose(v, want[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "case,dtype", TOPK_PARAMS,
+    ids=[f"q{c[0]}-n{c[1]}-d{c[2]}-k{c[3]}-{dt}" for c, dt in TOPK_PARAMS])
+def test_l2_topk_matches_pallas(case, dtype):
+    got, want = _topk_both(*case, dtype=dtype)
+    _assert_topk_equal(got, want)
+
+
+@pytest.mark.parametrize("metric,masked", [("cosine", False),
+                                           ("cosine", True),
+                                           ("euclidean", True)])
+def test_l2_topk_metric_and_mask_match_pallas(metric, masked):
+    n = 150
+    mask = None
+    if masked:
+        mask = np.random.default_rng(7).random(n) > 0.4
+    got, want = _topk_both(11, n, 16, 12, 8, 64, metric=metric, mask=mask)
+    _assert_topk_equal(got, want)
+    if masked:
+        assert not np.isin(got[1].numpy(), np.flatnonzero(~mask)).any()
+
+
+def test_l2_topk_mask_leaves_fewer_than_k_rows():
+    """Only 3 rows survive a k = 12 scan: the tail is (NEG_INF, PAD_ID).
+    (The shapes of the masked case above, so its compile is reused.)"""
+    mask = np.zeros(150, bool)
+    mask[[5, 17, 133]] = True
+    got, want = _topk_both(11, 150, 16, 12, 8, 64, mask=mask)
+    _assert_topk_equal(got, want)
+    assert np.all(got[1].numpy()[:, 3:] == PAD_ID)
+    assert np.all(got[0].numpy()[:, 3:] == np.float32(NEG_INF))
+
+
+def test_l2_topk_integer_corpus_bit_equal_and_ties_to_lower_id():
+    # the shapes of TOPK_CASES[0], so the reference's compile is reused
+    rng = np.random.default_rng(5)
+    q = rng.integers(-1, 2, (32, 16)).astype(np.float32)
+    db = rng.integers(-1, 2, (333, 16)).astype(np.float32)
+    want = jax_l2_topk(jnp.asarray(q), jnp.asarray(db), 5, impl="pallas",
+                       bq=32, bn=128, interpret=True)
+    v, i = l2_topk(torch.from_numpy(q), torch.from_numpy(db), 5)
+    v, i = v.numpy(), i.numpy()
+    np.testing.assert_array_equal(v, np.asarray(want[0]))
+    np.testing.assert_array_equal(i, np.asarray(want[1]))
+    exact = -((q[:, None, :] - db[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(v, np.take_along_axis(exact, i, 1))
+    ties = v[:, 1:] == v[:, :-1]
+    assert ties.any()  # the corpus does have ties
+    assert np.all(i[:, 1:][ties] > i[:, :-1][ties])
+
+
+def test_l2_topk_scan_ref_orders_pads_before_penalised_rows():
+    """The scan's pads (NEG_INF, -1) win ties against a row whose score is
+    NEG_INF too, as in the reference kernel's running merge."""
+    q = torch.zeros((1, 2))
+    d = torch.zeros((3, 2))
+    d_sq = torch.tensor([0.0, 1e30, 0.0])
+    v, i = l2_topk_scan_ref(q, d, d_sq, 3)
+    assert i.tolist() == [[0, 2, -1]]
+    assert v[0, 2].item() == np.float32(NEG_INF)
+
+
+def test_l2_topk_rejects_unknown_metric():
+    with pytest.raises(ValueError):
+        l2_topk(torch.zeros((1, 2)), torch.zeros((3, 2)), 1, metric="dot")
