@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-The main path is the paper's deployment stack ``RAE64,Flat,Rerank4``
-through the port's entry points (``repro_torch.api``): fit the RAE, encode
+Two paths of the paper's deployment stacks run through the port's entry
+points (``repro_torch.api``). ``RAE64,Flat,Rerank4``: fit the RAE, encode
 the corpus and the queries (the hand-written ``rae_encode`` kernel), scan
 the reduced corpus for the stage-1 top-k (the hand-written ``l2_topk``
-kernel), rerank exactly in the full space. Three phases:
+kernel), rerank exactly in the full space. ``RAE64,HNSW32,Rerank4``: fit,
+encode, build the graph over the reduced corpus on the host, traverse it
+on the card one hand-written ``graph_beam`` hop a step, rerank. Phases:
 
 1. kernels against their plain PyTorch versions on the card;
 2. acceptance at the reference's bar: recall@10 >= 0.9 on the 20k x 256
@@ -14,17 +16,23 @@ kernel), rerank exactly in the full space. Three phases:
 3. full size: the paper's 768-d ``imdb_like`` corpus at 1M rows and its
    3000-step schedule, 1024 queries in batches of 256, the kernel path's
    ids against the plain path's, and each kernel's time beside its bound,
-   its plain version's and the PyTorch library call's.
+   its plain version's and the PyTorch library call's;
+4. the graph stack on the 20k x 256 acceptance corpus (the graph is built
+   on the host, which bounds the size: see ``PERF.md``): recall@10 >= 0.9
+   and distance evals < 10% of N, reload identical, the kernel-hop
+   traversal against the plain-hop traversal, 1024 noisy queries in
+   batches of 256 and one at a time; and the hop kernel's time at N = 1M.
 
-Every launch counter is set to 0 just before phase 3 drives the main path
-and read just after; a kernel of the path that did not launch fails the
-run. The last lines are a ``kernels`` JSON object, the card's name and
+Every launch counter is set to 0 just before phases 3 and 4 drive their
+path and read just after; a kernel of the path that did not launch fails
+the run. The last lines are a ``kernels`` JSON object, the card's name and
 power limit, and ``{"ok": true, "device": ...}``. Any failure raises (exit
 code 1); without a CUDA card the script exits with code 2 before any
 result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -73,6 +81,53 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> tuple[float, bool]:
+    """Mean device time of ``fn`` over ``reps`` calls, with the card held
+    busy (``torch.cuda._sleep``, about 0.2 s) while the host enqueues the
+    calls, so a call that costs the host more than the card still shows
+    the card's time. Also returns whether the card was still asleep when
+    the host had enqueued every call (if not, host time leaked in)."""
+    fn()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(400_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    held = not start.query()
+    sync()
+    return start.elapsed_time(end) / reps, held
+
+
+def device_busy_share(fn, kernel: str) -> tuple[float, float, float]:
+    """(host wall ms, share of it the card was busy, device ms of the
+    kernels whose name holds ``kernel``) for one call of ``fn``, from a
+    ``torch.profiler`` trace of the card's activity (kernel and copy
+    intervals merged). A busy share of 0 means the trace held no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, last = 0.0, float("-inf")
+    for a, b in spans:
+        a = max(a, last)
+        if b > a:
+            busy += b - a
+            last = b
+    mine = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
+    return wall * 1e3, busy * 1e-3 / (wall * 1e3), mine * 1e-3
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -132,7 +187,82 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
                     dead = torch.nonzero(~mask).flatten().to(torch.int32)
                     check(not torch.isin(i, dead).any().item(),
                           "a tombstoned row surfaced")
+    errs["graph_beam"] = phase_kernels_graph_beam(g)
     return errs
+
+
+def beam_inputs(g: torch.Generator, nq: int, n: int, w: int, ef: int,
+                integer: bool, empty: float
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Candidate ids (about 25% masked -1) and a descending beam whose
+    first half holds real entries in the candidates' score range (integer
+    scores there, so beam and candidates tie)."""
+    ids = torch.randint(0, n, (nq, w), device="cuda", generator=g,
+                        dtype=torch.int32)
+    ids[torch.rand(nq, w, device="cuda", generator=g) < 0.25] = -1
+    live = (ef + 1) // 2
+    if integer:
+        vals = -torch.randint(100, 900, (nq, live), device="cuda",
+                              generator=g).float()
+    else:
+        vals = -128.0 + 23.0 * torch.randn(nq, live, device="cuda",
+                                           generator=g)
+    bv = torch.full((nq, ef), empty, device="cuda")
+    bi = torch.full((nq, ef), -1, device="cuda", dtype=torch.int32)
+    bv[:, :live] = torch.sort(vals, dim=1, descending=True).values
+    bi[:, :live] = torch.randint(0, n, (nq, live), device="cuda",
+                                 generator=g, dtype=torch.int32)
+    return ids, bv, bi
+
+
+def phase_kernels_graph_beam(g: torch.Generator) -> float:
+    """The hop kernel against its plain version on a 1M-row corpus: ids
+    equal; scores bit-equal on integer inputs, within SCORE_TOL on float
+    inputs (the kernel sums in the plain version's order, so they are
+    bit-equal there too, and the error is printed)."""
+    from repro_torch.kernels.graph_beam import graph_beam
+    from repro_torch.kernels.graph_beam.ref import graph_beam_ref
+
+    worst = 0.0
+    n = 1_000_003
+    for d, shapes in ((64, [(nq, w, ef) for nq in (1, 257)
+                            for w in (1, 64, 512) for ef in (1, 80, 2048)]),
+                      (1, [(257, 64, 80)])):
+        mask = torch.rand(n, device="cuda", generator=g) > 0.25
+        for integer in (True, False):
+            if integer:
+                q = torch.randint(-3, 4, (257, d), device="cuda",
+                                  generator=g).float()
+                db = torch.randint(-3, 4, (n, d), device="cuda",
+                                   generator=g).float()
+            else:
+                q = torch.randn(257, d, device="cuda", generator=g)
+                db = torch.randn(n, d, device="cuda", generator=g)
+            cases = bit_equal = 0
+            for nq, w, ef in shapes:
+                empty = float("-inf") if nq == 1 else -1e30
+                ids, bv, bi = beam_inputs(g, nq, n, w, ef, integer, empty)
+                for db_mask in (None, mask):
+                    args = (q[:nq], db, ids, bv, bi)
+                    v, i = graph_beam(*args, db_mask=db_mask)
+                    sync()
+                    vr, ir = graph_beam_ref(*args, db_mask=db_mask)
+                    err, rel = max_rel_err(v, vr)
+                    worst = max(worst, err)
+                    what = (f"graph_beam d={d} Q={nq} W={w} ef={ef} "
+                            f"integer={integer} mask={db_mask is not None}")
+                    check(torch.equal(i, ir), f"{what}: ids differ")
+                    if integer:
+                        check(torch.equal(v, vr), f"{what}: scores differ")
+                    check(rel <= SCORE_TOL, f"{what}: score err {err}")
+                    cases += 1
+                    bit_equal += int(torch.equal(v, vr))
+            log(f"phase 1: graph_beam N={n} d={d} "
+                f"{'integer' if integer else 'float'} inputs, {cases} cases "
+                f"(Q in {{1, 257}}, W, ef, with and without db_mask): ids "
+                f"equal in all, scores bit-equal in {bit_equal}/{cases}")
+            del db
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +484,216 @@ def kernel_times(full: dict) -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the graph stack RAE64,HNSW32,Rerank4 (tests/test_graph.py bar)
+# ---------------------------------------------------------------------------
+def noisy_queries(corpus: np.ndarray, n: int, seed: int) -> np.ndarray:
+    """Corpus rows plus small noise: the acceptance protocol's queries."""
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, corpus.shape[0], n)
+    return corpus[picks] + 0.01 * rng.standard_normal(
+        (n, corpus.shape[1])).astype(np.float32)
+
+
+def phase_graph(device: str, steps: int = 1000, batch: int = 256
+                ) -> dict[str, int]:
+    """Drive the graph stack; returns the main path's launch counts."""
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda
+    from repro_torch.kernels.graph_beam.ref import graph_beam_ref
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+    from repro_torch.search import hnsw
+    from repro_torch.search.twostage import rerank_candidates
+
+    counters = {"rae_encode": rae_encode_cuda, "l2_topk": l2_topk_scan_cuda,
+                "graph_beam": graph_beam_cuda}
+    corpus, queries = acceptance_data()
+    noisy = noisy_queries(corpus, 1024, seed=2)
+    n = corpus.shape[0]
+    idx = api.index_factory("RAE64,HNSW32,Rerank4",
+                            reducer_kw={"steps": steps, "seed": 0},
+                            device=device)
+
+    # the main path, with every launch counter from 0
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    idx.reducer.fit(corpus)
+    sync()
+    t_fit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.build(corpus)               # the fitted reducer is kept
+    sync()
+    t_build = time.perf_counter() - t0
+    res = idx.search(queries, 10)
+    batches, per_batch = [], []
+    for s in range(0, len(noisy), batch):
+        before = graph_beam_cuda.launches
+        r = idx.search(noisy[s:s + batch], 10)
+        batches.append(r)
+        per_batch.append((r.latency_s, r.stats["beam_hops"],
+                          graph_beam_cuda.launches - before))
+    singles = [idx.search(noisy[i:i + 1], 10) for i in range(len(noisy))]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 4: main-path launches {launches}")
+    check(launches["rae_encode"] > 0 and launches["graph_beam"] > 0,
+          f"a kernel of the graph path never launched: {launches}")
+
+    gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
+                             torch.as_tensor(corpus, device=device), 10)
+    recall = metrics.recall_at_k(torch.as_tensor(res.indices,
+                                                 device=device), gt)
+    with tempfile.TemporaryDirectory() as tmp:
+        idx.save(tmp)
+        res2 = api.load_index(tmp, device=device).search(queries, 10)
+    reload_same = bool(np.array_equal(res2.indices, res.indices)
+                       and np.array_equal(res2.scores, res.scores))
+    ids = np.concatenate([r.indices for r in batches])
+    single_ids = np.concatenate([r.indices for r in singles])
+    log(f"phase 4: RAE64,HNSW32,Rerank4 on {n}x256, {steps} steps, 64 "
+        f"queries: recall@10 {recall:.4f}, distance_evals "
+        f"{res.distance_evals:.1f} ({res.distance_evals / n:.4f} of N; "
+        f"stage 1 {res.stats['stage1_distance_evals']:.1f}, beam hops "
+        f"{res.stats['beam_hops']:.0f}), reload identical {reload_same}")
+    check(recall >= 0.9, f"graph acceptance recall@10 {recall} < 0.9")
+    check(res.distance_evals < 0.10 * n,
+          f"distance_evals {res.distance_evals} >= 10% of N")
+    check(reload_same, "load_index answers differ from the saved index's")
+    nn = len(noisy)
+    check(ids.shape == (nn, 10) and (ids >= 0).all() and (ids < n).all()
+          and all(np.isfinite(r.scores).all() for r in batches),
+          "graph answers: shape, finite scores, ids in range")
+    same_single = int((single_ids == ids).all(axis=1).sum())
+    log(f"phase 4: {nn} noisy queries: one at a time == in batches of "
+        f"{batch} (ids) for {same_single}/{nn} queries")
+    check(same_single >= 0.99 * nn,
+          f"only {same_single}/{nn} queries answer alone as in a batch")
+
+    # the kernel-hop traversal against the plain-hop one, same graph
+    g = idx.base._g
+    zq = idx.reducer.transform(torch.as_tensor(noisy, device=device))
+    k1, ef = idx.stage1_k(10), max(idx.base.ef_search, idx.stage1_k(10))
+    kern = hnsw.search_batched(g, zq, k1, ef_search=ef, device=device)
+    plain = hnsw.search_batched(g, zq, k1, ef_search=ef, device=device,
+                                hop=graph_beam_ref)
+    agree = int((kern[1] == plain[1]).all(dim=1).sum())
+    log(f"phase 4: kernel-hop traversal == plain-hop traversal (ids) for "
+        f"{agree}/{nn} queries; scores bit-equal "
+        f"{bool(torch.equal(kern[0], plain[0]))}; evals equal "
+        f"{bool(torch.equal(kern[2], plain[2]))}; hops {kern[3]} / "
+        f"{plain[3]}")
+    check(agree >= 0.99 * nn, f"kernel and plain traversals agree for "
+                              f"only {agree}/{nn} queries")
+
+    # layers of one batch, each timed on its own
+    qb = torch.as_tensor(noisy[:batch], device=device)
+    sync()
+    t0 = time.perf_counter()
+    zb = idx.reducer.transform(qb)
+    sync()
+    t_encode = time.perf_counter() - t0
+    before = graph_beam_cuda.launches
+    t0 = time.perf_counter()
+    s1 = idx.base.search(zb, k1)
+    t_stage1 = time.perf_counter() - t0
+    hop_launches = graph_beam_cuda.launches - before
+    cand = torch.as_tensor(s1.indices, device=device)
+    sync()
+    t0 = time.perf_counter()
+    rerank_candidates(qb, idx._db_full, cand, 10, idx.metric)
+    sync()
+    t_rerank = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.reducer.transform(torch.as_tensor(corpus, device=device))
+    sync()
+    t_corpus_encode = time.perf_counter() - t0
+    wall_ms, busy, hop_ms = device_busy_share(
+        lambda: idx.search(noisy[:batch], 10), "graph_beam")
+    lat1 = [r.latency_s for r in singles]
+    hops1 = [r.stats["beam_hops"] for r in singles]
+    log(f"phase 4: build: fit {t_fit:.2f} s ({steps} steps), encode + graph "
+        f"build {t_build:.2f} s (corpus encode alone {t_corpus_encode:.4f} "
+        f"s, so graph build about {t_build - t_corpus_encode:.2f} s on the "
+        f"host: M=32, ef_construction=100)")
+    log(f"phase 4: batches of {batch}: latency ms "
+        f"{[round(p[0] * 1e3, 3) for p in per_batch]}, layer-0 hops "
+        f"{[int(p[1]) for p in per_batch]}, graph_beam launches "
+        f"{[p[2] for p in per_batch]}, time per launch ms "
+        f"{[round(p[0] * 1e3 / max(p[2], 1), 4) for p in per_batch]}")
+    log(f"phase 4: one query at a time: latency median "
+        f"{float(np.median(lat1)) * 1e3:.3f} ms, max {max(lat1) * 1e3:.3f} "
+        f"ms, layer-0 hops median {float(np.median(hops1)):.0f}")
+    log(f"phase 4: one batch's layers: encode {t_encode * 1e3:.3f} ms, "
+        f"stage-1 traversal {s1.latency_s * 1e3:.3f} ms ({hop_launches} "
+        f"graph_beam launches, {s1.stats['beam_hops']:.0f} layer-0 hops, "
+        f"{s1.latency_s * 1e3 / max(hop_launches, 1):.4f} ms a launch), "
+        f"rerank {t_rerank * 1e3:.3f} ms")
+    log(f"phase 4: one {batch}-query search under torch.profiler: wall "
+        f"{wall_ms:.3f} ms, card busy {busy:.4f} of it (idle share "
+        f"{1.0 - busy:.4f}; 0 busy = no device event traced), graph_beam "
+        f"kernels {hop_ms:.4f} ms of device time")
+    return launches
+
+
+def graph_beam_time(launches: int, g: torch.Generator) -> dict:
+    """The hop kernel at the graph path's batch shape (Q=256, d=64, W=64 =
+    2M at M=32, ef=80) over a 1M-row corpus, all slots valid: its time
+    beside its bound, its plain version's and the PyTorch composite's. The
+    ids rotate through 20 random sets (80 MB of rows gathered in all, more
+    than the 50 MB L2), as a traversal at that size would find them."""
+    from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda
+    from repro_torch.kernels.graph_beam.ref import (graph_beam_ref,
+                                                    pairwise_sum)
+
+    nq, n, d, w, ef = 256, 1_000_000, 64, 64, 80
+    q = torch.randn(nq, d, device="cuda", generator=g)
+    db = torch.randn(n, d, device="cuda", generator=g)
+    db_sq, q_sq = pairwise_sum(db * db), pairwise_sum(q * q)
+    id_sets = [torch.randint(0, n, (nq, w), device="cuda", generator=g,
+                             dtype=torch.int32) for _ in range(20)]
+    bv = torch.sort(-128.0 + 23.0 * torch.randn(nq, ef, device="cuda",
+                                                 generator=g),
+                    dim=1, descending=True).values
+    bi = torch.randint(0, n, (nq, ef), device="cuda", generator=g,
+                       dtype=torch.int32)
+    turn = itertools.cycle(id_sets)
+
+    def ids():
+        return next(turn)
+
+    def library():
+        i = ids().long()
+        s = (2.0 * torch.einsum("qwd,qd->qw", db[i], q) - db_sq[i]
+             - q_sq[:, None])
+        v, j = torch.topk(torch.cat([bv, s], dim=1), ef, dim=1)
+        return v, torch.gather(torch.cat([bi, i.int()], dim=1), 1, j)
+
+    def kernel():
+        return graph_beam_cuda(q, db, db_sq, q_sq, ids(), bv, bi)
+
+    ms, held_k = device_ms(kernel, reps=200)
+    plain, held_p = device_ms(lambda: graph_beam_ref(q, db, ids(), bv, bi,
+                                                     db_sq, q_sq), reps=20)
+    lib, held_l = device_ms(library, reps=50)
+    # back to back from the host, as the traversal launches it
+    per_call = cuda_ms(kernel, reps=200)
+    b_ms, b_by = bound(4.0 * nq * d + nq * w * (4.0 * d + 8.0)
+                       + 4.0 * nq + 16.0 * nq * ef,
+                       2.0 * nq * w * d + 3.0 * nq * w)
+    log(f"phase 4: graph_beam Q={nq} N={n} d={d} W={w} ef={ef} (device "
+        f"time, card held busy while enqueuing: {held_k}, {held_p}, "
+        f"{held_l}): kernel {ms:.4f} ms, plain {plain:.4f} ms, gather + "
+        f"einsum + torch.topk {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"one call from the host, back to back, {per_call:.4f} ms")
+    return {"name": "graph_beam", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/graph_beam.cu",
+            "replaces": "src/repro/kernels/graph_beam/kernel.py:65",
+            "launches": launches, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -383,9 +723,14 @@ def main() -> int:
     full = phase_full(n=1_000_000, n_queries=1024, batch=256, steps=3000,
                       device="cuda")
     kernels = kernel_times(full)
+    del full
+    log(f"phase 3: ok in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    graph_launches = phase_graph("cuda")
+    kernels.append(graph_beam_time(graph_launches["graph_beam"], g))
+    log(f"phase 4: ok in {time.perf_counter() - t0:.2f} s")
     for entry in kernels:
         entry["max_abs_err"] = errs[entry["name"]]
-    log(f"phase 3: ok in {time.perf_counter() - t0:.2f} s")
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
 
     smi = subprocess.run(

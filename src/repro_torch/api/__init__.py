@@ -21,10 +21,12 @@ from .index import (
     register_index,
     snap_knob,
 )
+from .graph import HNSWIndex
 from .factory import IndexSpec, index_factory, parse_index_spec
 
 __all__ = [
     "FlatIndex",
+    "HNSWIndex",
     "IndexSpec",
     "KNOB_LADDER",
     "RAEReducer",

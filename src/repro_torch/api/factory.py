@@ -11,9 +11,9 @@ case-insensitive)::
     quant    := "SQ8" | "PQ" m "x" bits     # bits in 1..8
     rerank   := "Rerank" factor             # requires a reducer stage
 
-``index_factory`` builds ``[RAE<m>,]Flat[,Rerank<f>]``; every other stage
-raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports
-it. ``str(spec)`` renders a parsed spec back canonically.
+``index_factory`` builds ``[RAE<m>,](Flat|HNSW<M>)[,Rerank<f>]``; every
+other stage raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that ports it. ``str(spec)`` renders a parsed spec back canonically.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from typing import Any, Optional
 
 import torch
 
+from .graph import HNSWIndex
 from .index import FlatIndex, TwoStageIndex, VectorIndex
 from .reducer import list_reducers, make_reducer
 
@@ -207,8 +208,6 @@ def _not_ported(parsed: IndexSpec) -> Optional[str]:
                "item 9"
     if parsed.base == "ivf":
         return "IVF<n>: ROADMAP.md queue A item 5"
-    if parsed.base == "hnsw":
-        return "HNSW<M>: ROADMAP.md queue A item 6"
     if parsed.reducer is not None and parsed.reducer not in list_reducers():
         return f"reducer {parsed.reducer.upper()} (baseline reducers): " \
                f"ROADMAP.md queue A item 8"
@@ -228,8 +227,14 @@ def index_factory(spec: str, *, metric: str = "euclidean",
     missing = _not_ported(parsed)
     if missing is not None:
         raise NotImplementedError(f"{spec!r}: stage {missing}")
-    stack: VectorIndex = FlatIndex(metric=metric, device=device,
-                                   **dict(index_kw or {}))
+    if parsed.base == "hnsw":
+        if metric != "euclidean":
+            raise ValueError("HNSW base supports euclidean only")
+        stack: VectorIndex = HNSWIndex(m=parsed.hnsw_m, device=device,
+                                       **dict(index_kw or {}))
+    else:
+        stack = FlatIndex(metric=metric, device=device,
+                          **dict(index_kw or {}))
     if parsed.reducer is not None:
         reducer = make_reducer(parsed.reducer, parsed.out_dim, device=device,
                                **dict(reducer_kw or {}))

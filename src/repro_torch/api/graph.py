@@ -1,0 +1,213 @@
+"""Graph ``VectorIndex`` tier: HNSW beam search behind the factory.
+
+The port of the reference's ``api/graph.py`` for f32 payloads::
+
+    index_factory("HNSW32")                  # graph over the raw space
+    index_factory("RAE64,HNSW32,Rerank4")    # graph over the reduced space,
+                                             # exact full-space rerank
+
+``build`` runs the sequential heuristic insert on the host
+(:func:`repro_torch.search.hnsw.build`, numpy, bitwise the reference's
+graph) and uploads the packed adjacency to ``device``. ``search`` routes
+queries to one of two engines:
+
+* the batched traversal (:func:`~repro_torch.search.hnsw.search_batched`):
+  one ``graph_beam`` hop a step for the whole batch, on ``device``;
+* the sequential heapq beam (:func:`~repro_torch.search.hnsw.search`), on
+  the host.
+
+Routing is a decision of the port. On a CUDA index ``batched="auto"``
+sends every batch through the device traversal, q=1 included (the
+reference's ``batched=True``): the reference's rule sends q=1 to the host
+engine, which on the card would be a host path inside a CUDA index. On a
+CPU index ``"auto"`` follows the reference's rule (q=1 host, q>1 batched).
+``batched=True/False`` pin either engine.
+
+Under a rerank the graph declares ``stage1_oversample=2``, as the
+reference does. ``frontier`` is the reference's knob of its host
+frontier driver, which the port does not have; it is kept because the
+fingerprint and the saved ``meta.json`` carry it. Quantized payloads
+(``quant=``) and ``add`` are not ported (``ROADMAP.md`` queue A items 9
+and 11).
+
+Persistence is the reference's layout (``meta.json`` + ``arrays.npz``:
+vectors, levels, every layer's adjacency, the packed norms), so either
+package loads what the other saved.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Optional, Union
+
+import numpy as np
+import torch
+
+from ..search import hnsw as hnsw_lib
+from .index import (SearchParams, SearchResult, VectorIndex, _load_arrays,
+                    _numpy, _save_dir, _sync, register_index)
+
+
+@register_index("hnsw")
+class HNSWIndex(VectorIndex):
+    """Hierarchical navigable small-world graph (euclidean only)."""
+
+    stage1_oversample = 2
+
+    def __init__(self, m: int = 32, ef_construction: int = 100,
+                 ef_search: int = 64, seed: int = 0,
+                 batched: Union[str, bool] = "auto", frontier: int = 8,
+                 quant: Optional[str] = None,
+                 device: str | torch.device = "cuda"):
+        if m < 2:
+            raise ValueError(f"HNSW needs M >= 2, got {m}")
+        if batched not in ("auto", True, False):
+            raise ValueError(f"batched must be 'auto', True or False, "
+                             f"got {batched!r}")
+        if frontier < 1:
+            raise ValueError(f"frontier must be >= 1, got {frontier}")
+        if quant is not None:
+            raise NotImplementedError(
+                f"HNSW quant={quant!r} (quantized graph payloads): "
+                f"ROADMAP.md queue A item 9")
+        self.m = m
+        self.ef_construction = ef_construction
+        self.ef_search = ef_search
+        self.seed = seed
+        self.batched = batched
+        self.frontier = frontier
+        self.quant = quant
+        self.device = torch.device(device)
+        self._g: Optional[hnsw_lib.HNSWGraph] = None
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._g is None else self._g.ntotal
+
+    @property
+    def built(self) -> bool:
+        return self._g is not None
+
+    @property
+    def bytes_per_vector(self) -> float:
+        """f32 vector + int32 link slots in every layer the node occupies
+        (2M at layer 0, M per upper layer, averaged over the levels) +
+        int32 level."""
+        self._require_built()
+        g = self._g
+        upper_slots = g.M * float(g.levels.mean())
+        return float(g.vecs.shape[1] * 4
+                     + 4 * (g.links0.shape[1] + upper_slots) + 4)
+
+    @property
+    def dim(self) -> int:
+        self._require_built()
+        return int(self._g.vecs.shape[1])
+
+    def _fingerprint_state(self) -> list:
+        # the reference's state, byte for byte: vectors, every layer's
+        # adjacency, levels, and the query-time knobs that change answers
+        g = self._g
+        return [f"ef={self.ef_search}:entry={g.entry}"
+                f":batched={self.batched}:frontier={self.frontier}"
+                f":quant={self.quant}",
+                g.vecs, g.links0, g.links, g.levels]
+
+    def build(self, corpus) -> "HNSWIndex":
+        self._g = hnsw_lib.build(corpus, M=self.m,
+                                 ef_construction=self.ef_construction,
+                                 seed=self.seed)
+        if self.batched is not False:
+            self._upload()
+        return self
+
+    def _upload(self) -> None:
+        """Pack the graph and put it on the device once, at build/load."""
+        self._g.pack().device_arrays(self._g.vecs, self.device)
+
+    def _use_batched(self, nq: int) -> bool:
+        if self.batched == "auto":
+            return self.device.type == "cuda" or nq > 1
+        return bool(self.batched)
+
+    def add(self, vecs) -> np.ndarray:
+        raise NotImplementedError("HNSWIndex.add (incremental insert, "
+                                  "hnsw.insert_batch): ROADMAP.md queue A "
+                                  "item 11")
+
+    def set_params(self, params: SearchParams) -> None:
+        """Adopt a tuned ``ef_search`` default (fingerprint state)."""
+        if params.ef_search is not None:
+            self.ef_search = params.ef_search
+
+    def search(self, queries, k: int, alive=None,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        """Beam search with ef = max(ef_search, k). Queries whose beam
+        holds fewer than k nodes pad the tail with index -1 / score -inf.
+        ``alive`` (bool [ntotal]) tombstones rows out of both engines; the
+        entry point must be alive. ``params.ef_search`` overrides
+        ``self.ef_search`` for this call."""
+        self._require_built()
+        nq = int(queries.shape[0])
+        k_req = min(k, self.ntotal)
+        ef_base = (self.ef_search if params is None or params.ef_search is None
+                   else params.ef_search)
+        ef = max(ef_base, k_req)
+        al = None if alive is None else np.asarray(_numpy(alive), bool)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        if self._use_batched(nq):
+            scores, idx, evals, hops = hnsw_lib.search_batched(
+                self._g, queries, k_req, ef_search=ef, alive=al,
+                device=self.device)
+            scores, idx, evals = _numpy(scores), _numpy(idx), _numpy(evals)
+            row_bytes = 4 * self._g.vecs.shape[1] + 4
+            stats = {"distance_evals": float(evals.mean()),
+                     "beam_hops": float(hops),
+                     # f32 row + norm gathered per eval, over the hops
+                     "gather_bytes_per_hop":
+                         float(evals.sum() * row_bytes) / max(hops, 1)}
+        else:
+            scores, idx, evals = hnsw_lib.search(
+                self._g, np.asarray(_numpy(queries), np.float32), k_req,
+                ef_search=ef, alive=al)
+            stats = {"distance_evals": float(evals.mean())}
+        dt = time.perf_counter() - t0
+        return SearchResult(scores=scores, indices=idx, latency_s=dt,
+                            stats=stats)
+
+    def save(self, directory: str) -> None:
+        self._require_built()
+        g = self._g
+        p = g.pack()  # the packed norms ride along, as in the reference
+        _save_dir(directory,
+                  {"kind": self.kind, "m": self.m,
+                   "ef_construction": self.ef_construction,
+                   "ef_search": self.ef_search, "seed": self.seed,
+                   "entry": int(g.entry), "packed": True,
+                   "batched": self.batched, "frontier": self.frontier,
+                   "quant": self.quant},
+                  {"vecs": g.vecs, "levels": g.levels, "links0": g.links0,
+                   "links": g.links, "packed_vecs_sq": p.vecs_sq})
+
+    @classmethod
+    def _load(cls, directory: str, meta: dict[str, Any],
+              device: str | torch.device) -> "HNSWIndex":
+        self = cls(m=meta["m"], ef_construction=meta["ef_construction"],
+                   ef_search=meta["ef_search"], seed=meta["seed"],
+                   batched=meta.get("batched", "auto"),
+                   frontier=int(meta.get("frontier", 8)),
+                   quant=meta.get("quant"), device=device)
+        a = _load_arrays(directory)
+        links = a["links"]
+        if links.size == 0:  # single-layer graph round-trips as [0, N, M]
+            links = links.reshape(0, a["vecs"].shape[0], meta["m"])
+        self._g = hnsw_lib.HNSWGraph(
+            vecs=a["vecs"], levels=a["levels"], links0=a["links0"],
+            links=links, entry=int(meta["entry"]), M=int(meta["m"]))
+        if "packed_vecs_sq" in a:  # older saves: pack() on first search
+            self._g.packed = hnsw_lib.PackedHNSW(
+                nbrs0=self._g.links0, upper=self._g.links,
+                vecs_sq=a["packed_vecs_sq"])
+        if self.batched is not False:
+            self._upload()
+        return self

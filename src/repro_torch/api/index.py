@@ -4,8 +4,8 @@
 kernel on the card) and ``TwoStageIndex`` composes a
 :class:`~repro_torch.api.reducer.Reducer` with a base index: reduced-space
 candidate generation, full-space rerank (the paper's deployment stack).
-The IVF, HNSW, quantized, sharded and mutable tiers are not ported yet
-(``ROADMAP.md`` queue A).
+The HNSW tier lives in ``api/graph.py``. The IVF, quantized, sharded and
+mutable tiers are not ported yet (``ROADMAP.md`` queue A).
 
 Indexes keep their vectors on ``device`` (default ``"cuda"``). ``search``
 takes numpy arrays or tensors and returns a :class:`SearchResult` of

@@ -9,7 +9,9 @@ first use) and skips without one. The file imports only torch, numpy and
 Tolerances: on integer-valued inputs every product and sum is exact in
 float32, so kernel and plain version must agree bit for bit, ids and
 scores; on float inputs ids must be equal and values within 1e-4 of the
-largest magnitude (float32 sums in another order).
+largest magnitude (float32 sums in another order), except for the
+``graph_beam`` hop, whose kernel sums in its plain version's order and
+must agree bit for bit on every input.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,10 @@ torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
 
 from repro_torch import api  # noqa: E402
+from repro_torch.kernels import graph_beam  # noqa: E402
+from repro_torch.kernels.common import NEG_INF  # noqa: E402
+from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda  # noqa: E402
+from repro_torch.kernels.graph_beam.ref import graph_beam_ref  # noqa: E402
 from repro_torch.kernels import l2_topk  # noqa: E402
 from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import (l2_topk_ref,  # noqa: E402
@@ -140,3 +146,92 @@ def test_flat_and_twostage_on_card_answer_like_the_plain_path(tmp_path):
     back = api.load_index(str(tmp_path / "i"), device="cpu")
     np.testing.assert_array_equal(back.search(queries, 10).scores,
                                   res.scores)
+
+
+def _beam(q_n, ef, live, empty=NEG_INF):
+    bv = torch.full((q_n, ef), empty)
+    bi = torch.full((q_n, ef), -1, dtype=torch.int32)
+    for s in range(min(live, ef)):
+        bv[:, s] = -1000.25 - s      # below every integer score: no ties
+        bi[:, s] = s
+    return bv, bi
+
+
+@needs_card
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "int"])
+@pytest.mark.parametrize("q_n,n,d,w,ef,live", [
+    (7, 60, 16, 9, 8, 2), (5, 30, 8, 1, 6, 0), (3, 20, 4, 3, 15, 3),
+    (4, 25, 1, 5, 4, 1), (33, 5000, 64, 64, 80, 40), (2, 900, 64, 1024, 1, 1),
+    (3, 3000, 24, 300, 4096, 100)])
+def test_graph_beam_kernel_matches_plain(q_n, n, d, w, ef, live, integer):
+    rng = np.random.default_rng(q_n + w)
+    if integer:
+        q, db = _ints(1, (q_n, d)), _ints(2, (n, d))
+    else:
+        q, db = _normal(1, (q_n, d)), _normal(2, (n, d))
+    ids = torch.from_numpy(rng.integers(-1, n, (q_n, w)).astype(np.int32))
+    bv, bi = _beam(q_n, ef, live, empty=-np.inf if live % 2 else NEG_INF)
+    mask = torch.from_numpy(rng.random(n) > 0.25)
+    mask[:live] = True
+    args = [t.cuda() for t in (q, db, ids, bv, bi)]
+    for db_mask in (None, mask.cuda()):
+        v, i = graph_beam(*args, db_mask=db_mask)
+        torch.cuda.synchronize()
+        vr, ir = graph_beam_ref(*args, db_mask=db_mask)
+        # the kernel sums in the plain version's pairwise tree: bit-equal
+        assert torch.equal(i, ir)
+        assert torch.equal(v, vr)
+
+
+@needs_card
+def test_graph_beam_kernel_limits_and_launch_counter():
+    q, db = torch.zeros((2, 8), device="cuda"), torch.zeros((9, 8),
+                                                            device="cuda")
+    sq = torch.zeros(9, device="cuda")
+    qsq = torch.zeros(2, device="cuda")
+
+    def call(w, ef):
+        ids = torch.zeros((2, w), dtype=torch.int32, device="cuda")
+        bv = torch.full((2, ef), NEG_INF, device="cuda")
+        bi = torch.full((2, ef), -1, dtype=torch.int32, device="cuda")
+        return graph_beam_cuda(q, db, sq, qsq, ids, bv, bi)
+
+    with pytest.raises(ValueError, match="W <= 1024"):
+        call(1025, 8)
+    with pytest.raises(ValueError, match="ef <= 4096"):
+        call(8, 4097)
+    graph_beam_cuda.launches = 0
+    call(1024, 4096)
+    call(1, 1)
+    assert graph_beam_cuda.launches == 2
+
+
+@needs_card
+def test_hnsw_index_on_card_answers_like_the_cpu_index(tmp_path):
+    """The device traversal (kernel hop) against the same index on the
+    CPU (plain hop): equal ids for >= 99% of queries, each search through
+    the kernel; a lone query on the card takes the device traversal."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(8, 32)) * 4
+    corpus = (centers[rng.integers(0, 8, 3000)]
+              + rng.normal(size=(3000, 32))).astype(np.float32)
+    queries = corpus[rng.integers(0, 3000, 200)] + 0.01
+    gpu = api.HNSWIndex(m=8, ef_construction=40).build(corpus)
+    gpu.save(str(tmp_path / "g"))
+    cpu = api.load_index(str(tmp_path / "g"), device="cpu")
+    graph_beam_cuda.launches = 0
+    got = gpu.search(queries, 10)
+    assert graph_beam_cuda.launches >= got.stats["beam_hops"] + 1
+    want = cpu.search(queries, 10)
+    same = np.mean([set(a) == set(b)
+                    for a, b in zip(got.indices.tolist(),
+                                    want.indices.tolist())])
+    assert same >= 0.99, same
+    rows = (got.indices == want.indices).all(axis=1)
+    _close(torch.from_numpy(got.scores[rows]),
+           torch.from_numpy(want.scores[rows]))
+    assert "beam_hops" in gpu.search(queries[:1], 10).stats
+    # a query answers the same alone and in the batch
+    solo = gpu.search(queries[3:4], 10)
+    np.testing.assert_array_equal(solo.indices[0], got.indices[3])
+    np.testing.assert_array_equal(solo.scores[0], got.scores[3])

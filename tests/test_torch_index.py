@@ -211,7 +211,7 @@ def test_parse_rejects_what_the_reference_rejects(bad):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("IVF32", "item 5"), ("RAE8,HNSW8,Rerank2", "item 6"),
+    ("IVF32", "item 5"), ("RAE8,HNSW8,SQ8,Rerank2", "item 9"),
     ("PCA8,Flat", "item 8"), ("Flat,SQ8", "item 9"), ("Shard2", "item 10"),
     ("Mut,Flat", "item 11"),
 ])
