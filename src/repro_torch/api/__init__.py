@@ -12,6 +12,7 @@ from .reducer import (
 from .index import (
     KNOB_LADDER,
     FlatIndex,
+    IVFFlatIndex,
     SearchParams,
     SearchResult,
     TwoStageIndex,
@@ -22,17 +23,20 @@ from .index import (
     snap_knob,
 )
 from .graph import HNSWIndex
+from .sharded import ShardedIndex
 from .factory import IndexSpec, index_factory, parse_index_spec
 
 __all__ = [
     "FlatIndex",
     "HNSWIndex",
+    "IVFFlatIndex",
     "IndexSpec",
     "KNOB_LADDER",
     "RAEReducer",
     "Reducer",
     "SearchParams",
     "SearchResult",
+    "ShardedIndex",
     "TwoStageIndex",
     "VectorIndex",
     "get_reducer",

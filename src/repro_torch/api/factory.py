@@ -11,12 +11,14 @@ case-insensitive)::
     quant    := "SQ8" | "PQ" m "x" bits     # bits in 1..8
     rerank   := "Rerank" factor             # requires a reducer stage
 
-``index_factory`` builds ``[RAE<m>,](Flat|HNSW<M>)[,Rerank<f>]``; every
-other stage raises ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that ports it. ``str(spec)`` renders a parsed spec back canonically.
+``index_factory`` builds ``[RAE<m>,][Shard<S>,](Flat|IVF<n>|HNSW<M>)
+[,Rerank<f>]``; every other stage raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it. ``str(spec)`` renders a parsed spec back
+canonically.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -24,8 +26,9 @@ from typing import Any, Optional
 import torch
 
 from .graph import HNSWIndex
-from .index import FlatIndex, TwoStageIndex, VectorIndex
+from .index import FlatIndex, IVFFlatIndex, TwoStageIndex, VectorIndex
 from .reducer import list_reducers, make_reducer
+from .sharded import ShardedIndex
 
 _TOKEN = re.compile(r"^([A-Za-z_]+?)(\d+)?$")
 _PQ = re.compile(r"^pq(\d+)x(\d+)$", re.IGNORECASE)
@@ -201,13 +204,9 @@ def _not_ported(parsed: IndexSpec) -> Optional[str]:
     """The ROADMAP.md item that ports the first unported stage, if any."""
     if parsed.mutable:
         return "Mut (live mutation): ROADMAP.md queue A item 11"
-    if parsed.shards:
-        return "Shard<S> (sharding): ROADMAP.md queue A item 10"
     if parsed.quant is not None:
         return "SQ8 / PQ<m>x<bits> (quantized tiers): ROADMAP.md queue A " \
                "item 9"
-    if parsed.base == "ivf":
-        return "IVF<n>: ROADMAP.md queue A item 5"
     if parsed.reducer is not None and parsed.reducer not in list_reducers():
         return f"reducer {parsed.reducer.upper()} (baseline reducers): " \
                f"ROADMAP.md queue A item 8"
@@ -227,11 +226,23 @@ def index_factory(spec: str, *, metric: str = "euclidean",
     missing = _not_ported(parsed)
     if missing is not None:
         raise NotImplementedError(f"{spec!r}: stage {missing}")
-    if parsed.base == "hnsw":
+    if parsed.shards:
+        child_spec = str(dataclasses.replace(
+            parsed, reducer=None, out_dim=0, shards=0, rerank_factor=1,
+            mutable=False))
+        stack: VectorIndex = ShardedIndex(
+            n_shards=parsed.shards, child_spec=child_spec, metric=metric,
+            workers="threads", index_kw=dict(index_kw or {}), device=device)
+    elif parsed.base == "hnsw":
         if metric != "euclidean":
             raise ValueError("HNSW base supports euclidean only")
-        stack: VectorIndex = HNSWIndex(m=parsed.hnsw_m, device=device,
-                                       **dict(index_kw or {}))
+        stack = HNSWIndex(m=parsed.hnsw_m, device=device,
+                          **dict(index_kw or {}))
+    elif parsed.base == "ivf":
+        if metric != "euclidean":
+            raise ValueError("IVF base supports euclidean only")
+        stack = IVFFlatIndex(n_cells=parsed.n_cells, device=device,
+                             **dict(index_kw or {}))
     else:
         stack = FlatIndex(metric=metric, device=device,
                           **dict(index_kw or {}))

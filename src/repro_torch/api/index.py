@@ -1,11 +1,13 @@
 """``VectorIndex``: one build/search/save/load interface for the search tiers.
 
 ``FlatIndex`` is the exact scan (``search.distributed``: the ``l2_topk``
-kernel on the card) and ``TwoStageIndex`` composes a
+kernel on the card), ``IVFFlatIndex`` the k-means cells + probe scan
+(``search.ivf``), and ``TwoStageIndex`` composes a
 :class:`~repro_torch.api.reducer.Reducer` with a base index: reduced-space
 candidate generation, full-space rerank (the paper's deployment stack).
-The HNSW tier lives in ``api/graph.py``. The IVF, quantized, sharded and
-mutable tiers are not ported yet (``ROADMAP.md`` queue A).
+The HNSW tier lives in ``api/graph.py``, the sharded tier in
+``api/sharded.py``. The quantized and mutable tiers are not ported yet
+(``ROADMAP.md`` queue A).
 
 Indexes keep their vectors on ``device`` (default ``"cuda"``). ``search``
 takes numpy arrays or tensors and returns a :class:`SearchResult` of
@@ -18,6 +20,7 @@ directory, ``TwoStageIndex`` nesting ``reducer/`` and ``base/``), so
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..search import distributed as ds
+from ..search import ivf as ivf_lib
 from ..search import twostage as ts_lib
 from .reducer import Reducer, as_device_tensor, load_reducer
 
@@ -221,6 +225,36 @@ class VectorIndex:
             raise RuntimeError(f"{self.kind}: search before build")
 
 
+def _pad_result(v: torch.Tensor, i: torch.Tensor, k_req: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FAISS pad convention when fewer than k candidates exist: tail rows
+    get score -inf / index -1. Shared by every tier that can come up
+    short (IVF probes)."""
+    pad = k_req - v.shape[1]
+    if pad <= 0:
+        return v, i
+    v = torch.cat([v, torch.full((v.shape[0], pad), float("-inf"),
+                                 dtype=v.dtype, device=v.device)], 1)
+    i = torch.cat([i, torch.full((i.shape[0], pad), -1, dtype=i.dtype,
+                                 device=i.device)], 1)
+    return v, i
+
+
+def _probed_sizes(queries: np.ndarray, centroids: np.ndarray,
+                  cell_sizes: np.ndarray, nprobe: int) -> float:
+    """Mean members the probe scan evaluates per query — the IVF
+    ``distance_evals`` stat. The reference's host computation, line for
+    line (numpy, Q x C), so the stat is the reference's number; the
+    centroid scan is reported separately as ``centroid_evals``."""
+    q = np.asarray(queries, np.float32)
+    c = np.asarray(centroids, np.float32)
+    d2 = (np.sum(q * q, 1)[:, None] - 2.0 * q @ c.T
+          + np.sum(c * c, 1)[None, :])
+    p = min(nprobe, c.shape[0])
+    cells = np.argpartition(d2, p - 1, axis=1)[:, :p]
+    return float(cell_sizes[cells].sum(axis=1).mean())
+
+
 def _timed(fn: Callable[[], tuple[torch.Tensor, torch.Tensor]],
            device: torch.device,
            stats: Optional[dict[str, float]] = None) -> SearchResult:
@@ -302,6 +336,189 @@ class FlatIndex(VectorIndex):
         self = cls(metric=meta["metric"], device=device)
         self._db = torch.as_tensor(_load_arrays(directory)["db"],
                                    device=self.device)
+        return self
+
+
+# ---------------------------------------------------------------------------
+# IVF-Flat (coarse quantization)
+# ---------------------------------------------------------------------------
+@register_index("ivf_flat")
+class IVFFlatIndex(VectorIndex):
+    """k-means cells + padded-dense probe scan (``search.ivf``) on
+    ``device``. Euclidean only (scores = negative squared distance).
+    ``nprobe`` defaults to n_cells/16 (min 8)."""
+
+    def __init__(self, n_cells: int = 256, nprobe: int = 0,
+                 cell_cap: Optional[int] = None, kmeans_iters: int = 10,
+                 seed: int = 0, device: str | torch.device = "cuda"):
+        self.n_cells = n_cells
+        self.nprobe = nprobe or max(8, n_cells // 16)
+        self.cell_cap = cell_cap
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.device = torch.device(device)
+        self._ivf: Optional[ivf_lib.IVFIndex] = None
+        self._cell_sizes: Optional[np.ndarray] = None  # fixed at build
+        self._ntotal = 0
+
+    @property
+    def ntotal(self) -> int:
+        return self._ntotal
+
+    @property
+    def built(self) -> bool:
+        return self._ivf is not None
+
+    @property
+    def bytes_per_vector(self) -> float:
+        """f32 list vector + int32 row id."""
+        self._require_built()
+        return float(self._ivf.list_vecs.shape[2] * 4 + 4)
+
+    @property
+    def dim(self) -> int:
+        self._require_built()
+        return int(self._ivf.centroids.shape[1])
+
+    def _fingerprint_state(self) -> list:
+        return [f"nprobe={self.nprobe}", self._ivf.centroids,
+                self._ivf.lists, self._ivf.list_vecs]
+
+    def build(self, corpus) -> "IVFFlatIndex":
+        corpus = as_device_tensor(corpus, self.device)
+        n_cells = min(self.n_cells, corpus.shape[0])
+        self._ivf = ivf_lib.build(corpus, n_cells, cell_cap=self.cell_cap,
+                                  kmeans_iters=self.kmeans_iters,
+                                  seed=self.seed)
+        self._cell_sizes = _numpy(self._ivf.list_mask).sum(axis=1)
+        self._ntotal = int(corpus.shape[0])
+        return self
+
+    def add(self, vecs) -> None:
+        """Streaming insert: assign each new row to its nearest centroid
+        and append into that cell's padded list (centroids stay fixed;
+        :meth:`cell_imbalance` exposes the skew). Touched cells are
+        re-packed prefix-dense; list capacity grows when a cell fills.
+        The reference's host code, line for line in numpy, then the lists
+        go back to ``device``."""
+        self._require_built()
+        nv = np.asarray(_numpy(vecs), np.float32)
+        cent = _numpy(self._ivf.centroids).astype(np.float32)
+        d2 = (np.sum(nv * nv, 1)[:, None] - 2.0 * nv @ cent.T
+              + np.sum(cent * cent, 1)[None, :])
+        cells = np.argmin(d2, axis=1)
+        lists = _numpy(self._ivf.lists).copy()
+        mask = _numpy(self._ivf.list_mask).copy()
+        lvecs = _numpy(self._ivf.list_vecs).copy()
+        need = mask.sum(axis=1)
+        np.add.at(need, cells, 1)
+        cap = lists.shape[1]
+        new_cap = int(max(cap, need.max()))
+        if new_cap > cap:
+            pad = new_cap - cap
+            lists = np.pad(lists, ((0, 0), (0, pad)), constant_values=-1)
+            mask = np.pad(mask, ((0, 0), (0, pad)))
+            lvecs = np.pad(lvecs, ((0, 0), (0, pad), (0, 0)))
+        new_ids = np.arange(self._ntotal, self._ntotal + nv.shape[0],
+                            dtype=lists.dtype)
+        for c in np.unique(cells):
+            sel = cells == c
+            old = mask[c]
+            ids = np.concatenate([lists[c][old], new_ids[sel]])
+            vv = np.concatenate([lvecs[c][old], nv[sel]])
+            lists[c] = -1
+            mask[c] = False
+            lvecs[c, : len(ids)] = vv
+            lists[c, : len(ids)] = ids
+            mask[c, : len(ids)] = True
+        dev = self.device
+        self._ivf = ivf_lib.IVFIndex(
+            centroids=self._ivf.centroids,
+            lists=torch.as_tensor(lists, device=dev),
+            list_vecs=torch.as_tensor(lvecs, device=dev),
+            list_mask=torch.as_tensor(mask, device=dev),
+            spill=self._ivf.spill)
+        self._cell_sizes = mask.sum(axis=1)
+        self._ntotal += int(nv.shape[0])
+
+    def cell_imbalance(self) -> float:
+        """Largest cell over the mean cell size (1.0 = balanced)."""
+        self._require_built()
+        sizes = np.asarray(self._cell_sizes, np.float64)
+        return float(sizes.max() / max(sizes.mean(), 1e-12))
+
+    def set_params(self, params: SearchParams) -> None:
+        """Adopt a tuned ``nprobe`` default (fingerprint state)."""
+        if params.nprobe is not None:
+            self.nprobe = params.nprobe
+
+    def search(self, queries, k: int, alive=None,
+               params: Optional[SearchParams] = None) -> SearchResult:
+        """Like FAISS, a query whose probed cells hold fewer than k members
+        pads the tail with index -1 / score -inf. ``alive`` folds into the
+        list mask (ids nulled too), so a tombstoned row can neither score
+        nor surface. ``params.nprobe`` overrides ``self.nprobe`` for this
+        call."""
+        self._require_built()
+        q = as_device_tensor(queries, self.device)
+        nprobe = (self.nprobe if params is None or params.nprobe is None
+                  else params.nprobe)
+        nprobe = min(nprobe, int(self._ivf.centroids.shape[0]))
+        k_req = min(k, self.ntotal)
+        # the probe scan can surface at most nprobe * cell_cap rows
+        k_eff = min(k_req, nprobe * int(self._ivf.lists.shape[1]))
+        index = self._ivf
+        if alive is not None:
+            lists = index.lists
+            al = torch.as_tensor(np.asarray(_numpy(alive), bool),
+                                 device=self.device)
+            mask = index.list_mask & al[torch.where(lists >= 0, lists,
+                                                    0).long()]
+            index = dataclasses.replace(
+                index, lists=torch.where(mask, lists,
+                                         torch.full_like(lists, -1)),
+                list_mask=mask)
+
+        def run():
+            v, i = ivf_lib.search(index, q, k_eff, nprobe=nprobe)
+            return _pad_result(v, i, k_req)
+
+        return _timed(run, self.device, stats={
+            "distance_evals": _probed_sizes(_numpy(q),
+                                            _numpy(self._ivf.centroids),
+                                            self._cell_sizes, nprobe),
+            "centroid_evals": float(self._ivf.centroids.shape[0]),
+        })
+
+    def save(self, directory: str) -> None:
+        self._require_built()
+        meta = {"kind": self.kind, "n_cells": self.n_cells,
+                "nprobe": self.nprobe, "kmeans_iters": self.kmeans_iters,
+                "seed": self.seed, "ntotal": self._ntotal,
+                "spill": int(self._ivf.spill)}
+        _save_dir(directory, meta, {
+            "centroids": _numpy(self._ivf.centroids),
+            "lists": _numpy(self._ivf.lists),
+            "list_vecs": _numpy(self._ivf.list_vecs),
+            "list_mask": _numpy(self._ivf.list_mask),
+        })
+
+    @classmethod
+    def _load(cls, directory: str, meta: dict[str, Any],
+              device: str | torch.device) -> "IVFFlatIndex":
+        self = cls(n_cells=meta["n_cells"], nprobe=meta["nprobe"],
+                   kmeans_iters=meta["kmeans_iters"], seed=meta["seed"],
+                   device=device)
+        a = _load_arrays(directory)
+        dev = self.device
+        self._ivf = ivf_lib.IVFIndex(
+            centroids=torch.as_tensor(a["centroids"], device=dev),
+            lists=torch.as_tensor(a["lists"], device=dev),
+            list_vecs=torch.as_tensor(a["list_vecs"], device=dev),
+            list_mask=torch.as_tensor(a["list_mask"], device=dev),
+            spill=int(meta.get("spill", 0)))
+        self._cell_sizes = a["list_mask"].sum(axis=1)
+        self._ntotal = int(meta["ntotal"])
         return self
 
 

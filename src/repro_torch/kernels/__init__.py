@@ -6,5 +6,6 @@ CPU tensor."""
 from .graph_beam import graph_beam
 from .l2_topk import l2_topk
 from .rae_encode import rae_encode
+from .topk_merge import topk_merge
 
-__all__ = ["graph_beam", "l2_topk", "rae_encode"]
+__all__ = ["graph_beam", "l2_topk", "rae_encode", "topk_merge"]

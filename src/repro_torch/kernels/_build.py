@@ -16,11 +16,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("rae_encode", "l2_topk", "graph_beam")
+KERNELS = ("rae_encode", "l2_topk", "graph_beam", "topk_merge")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,3 +83,13 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built first if needed."""
     return ctypes.CDLL(str(build((name,))[name]))
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. The sharded search launches kernels
+    from a thread pool, so the count is taken under a lock."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1

@@ -92,7 +92,7 @@ def graph_beam_cuda(q: torch.Tensor, db: torch.Tensor, db_sq: torch.Tensor,
         raise RuntimeError(f"graph_beam kernel launch failed (cuda error "
                            f"{err})")
     if nq:
-        graph_beam_cuda.launches += 1
+        _build.count_launch(graph_beam_cuda)
     return vals, ids
 
 

@@ -101,7 +101,7 @@ def l2_topk_scan_cuda(q: torch.Tensor, d: torch.Tensor, d_sq: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"l2_topk kernel launch failed (cuda error {err})")
     if nq:
-        l2_topk_scan_cuda.launches += 1
+        _build.count_launch(l2_topk_scan_cuda)
     return vals, ids
 
 

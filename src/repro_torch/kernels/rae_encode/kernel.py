@@ -61,7 +61,7 @@ def rae_encode_cuda(x: torch.Tensor, w_e: torch.Tensor,
         raise RuntimeError(f"rae_encode kernel launch failed (cuda error "
                            f"{err})")
     if rows:
-        rae_encode_cuda.launches += 1
+        _build.count_launch(rae_encode_cuda)
     return z
 
 

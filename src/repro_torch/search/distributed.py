@@ -5,7 +5,9 @@ On a CUDA tensor the scan and the top-k run in the hand-written
 plain PyTorch mirror of the reference's single-device branch
 (``src/repro/search/distributed.py:141-149``): the same score form, and a
 top-k that breaks ties to the lower id. The reference's mesh branch
-(corpus row-sharded over devices, merged by ``topk_merge``) is not ported.
+(corpus row-sharded over several devices, merged by ``topk_merge``) needs
+more than one device and is not ported; on one card the sharded tier is
+``api/sharded.py``'s thread pool.
 """
 from __future__ import annotations
 
@@ -65,8 +67,10 @@ def search(queries: torch.Tensor, db: torch.Tensor, k: int,
     contract). ``k > N`` pads the tail the same way."""
     if mesh is not None:
         raise NotImplementedError(
-            "search over a device mesh (row-sharded corpus + topk_merge) is "
-            "not ported yet: ROADMAP.md queue A item 10")
+            "search over a device mesh (corpus row-sharded over several "
+            "devices, merged by topk_merge) is not ported: it needs more "
+            "than one device and waits for a 4-chip cell; on one card use "
+            "the Shard<S> stage (api/sharded.py, thread pool)")
     if queries.device.type == "cuda":
         return l2_topk(queries, db, k, metric, db_mask=alive)
     s = scores(queries, db, metric)

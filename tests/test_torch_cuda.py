@@ -11,7 +11,8 @@ float32, so kernel and plain version must agree bit for bit, ids and
 scores; on float inputs ids must be equal and values within 1e-4 of the
 largest magnitude (float32 sums in another order), except for the
 ``graph_beam`` hop, whose kernel sums in its plain version's order and
-must agree bit for bit on every input.
+must agree bit for bit on every input. The ``topk_merge`` kernel orders
+by the plain version's keys and must agree with it bit for bit too.
 """
 import numpy as np
 import pytest
@@ -31,6 +32,9 @@ from repro_torch.kernels.l2_topk.ref import (l2_topk_ref,  # noqa: E402
                                              l2_topk_scan_ref, prepare)
 from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda  # noqa: E402
 from repro_torch.kernels.rae_encode.ref import rae_encode_ref  # noqa: E402
+from repro_torch.kernels import topk_merge  # noqa: E402
+from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda  # noqa: E402
+from repro_torch.kernels.topk_merge.ref import topk_merge_ref  # noqa: E402
 
 # a string condition is evaluated when the test runs, not at import
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -235,3 +239,92 @@ def test_hnsw_index_on_card_answers_like_the_cpu_index(tmp_path):
     solo = gpu.search(queries[3:4], 10)
     np.testing.assert_array_equal(solo.indices[0], got.indices[3])
     np.testing.assert_array_equal(solo.scores[0], got.scores[3])
+
+
+def _merge_case(q_n, c, seed):
+    """Candidates as the sharded merge sees them, on the card: ids unique
+    per row with about 25% pads, integer values (dense ties), signed zeros
+    and live ids at NEG_INF."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.argsort(torch.rand(q_n, 4 * c, generator=g), dim=1)[:, :c]
+    ids = ids.to(torch.int32)
+    ids[torch.rand(q_n, c, generator=g) < 0.25] = -1
+    vals = torch.randint(-3, 4, (q_n, c), generator=g).float()
+    vals[torch.rand(q_n, c, generator=g) < 0.2] = -0.0
+    vals[torch.rand(q_n, c, generator=g) < 0.05] = NEG_INF
+    return vals.cuda(), ids.cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("q_n", [1, 257])
+@pytest.mark.parametrize("c,k", [(1, 3), (6, 10), (96, 16), (320, 40),
+                                 (1000, 1000), (16384, 2048)])
+def test_topk_merge_kernel_matches_plain(q_n, c, k):
+    vals, ids = _merge_case(q_n, c, q_n + c + k)
+    v, i = topk_merge(vals, ids, k)
+    torch.cuda.synchronize()
+    vr, ir = topk_merge_ref(vals, ids, k)
+    assert torch.equal(i, ir)
+    assert torch.equal(v.view(torch.int32), vr.view(torch.int32))
+
+
+@needs_card
+def test_topk_merge_kernel_limits_and_launch_counter():
+    vals = torch.zeros((2, 16385), device="cuda")
+    ids = torch.zeros((2, 16385), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="C <= 16384"):
+        topk_merge_cuda(vals, ids, 4)
+    v4, i4 = vals[:, :4].contiguous(), ids[:, :4].contiguous()
+    with pytest.raises(ValueError, match="k <= C"):
+        topk_merge_cuda(v4, i4, 5)
+    with pytest.raises(ValueError, match="int32"):
+        topk_merge_cuda(v4, i4.long(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_merge_cuda(vals[:, :4], ids[:, :4], 2)
+    topk_merge_cuda.launches = 0
+    topk_merge_cuda(vals[:, :16384].contiguous(),
+                    ids[:, :16384].contiguous(), 16384)
+    topk_merge(vals[:, :3], ids[:, :3], 7)  # ops widens the pool to k
+    assert topk_merge_cuda.launches == 2
+
+
+@needs_card
+@pytest.mark.parametrize("s", [1, 2, 8])
+def test_sharded_flat_on_card_equals_flat_bitwise(s):
+    """The contract on the card: Shard<S>,Flat == FlatIndex, bit for bit,
+    on a prime-sized integer corpus; each sharded search merges once."""
+    corpus = _ints(5, (5003, 16), -8, 8).numpy()
+    queries = _ints(6, (37, 16), -8, 8).numpy()
+    flat = api.FlatIndex().build(corpus).search(queries, 20)
+    idx = api.index_factory(f"Shard{s}").build(corpus)
+    topk_merge_cuda.launches = 0
+    got = idx.search(queries, 20)
+    assert topk_merge_cuda.launches == 1
+    np.testing.assert_array_equal(got.indices, flat.indices)
+    np.testing.assert_array_equal(got.scores.view(np.int32),
+                                  flat.scores.view(np.int32))
+
+
+@needs_card
+def test_ivf_index_on_card_answers_like_the_cpu_index(tmp_path):
+    """One IVF index (built on the CPU, loaded on both devices): equal ids
+    and bit-equal scores on an integer corpus; two builds on the card give
+    one fingerprint (the Lloyd sums take a fixed order)."""
+    corpus = _ints(7, (4001, 16), -8, 8).numpy()
+    queries = _ints(8, (50, 16), -8, 8).numpy()
+    api.IVFFlatIndex(n_cells=32, device="cpu").build(corpus).save(
+        str(tmp_path / "i"))
+    cpu = api.load_index(str(tmp_path / "i"), device="cpu")
+    gpu = api.load_index(str(tmp_path / "i"))
+    for nprobe in (None, 24):
+        p = None if nprobe is None else api.SearchParams(nprobe=nprobe)
+        a, b = gpu.search(queries, 30, params=p), cpu.search(queries, 30,
+                                                            params=p)
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.scores, b.scores)
+        assert a.stats == b.stats
+    x = _normal(9, (20000, 64)).numpy()
+    one = api.IVFFlatIndex(n_cells=64).build(x)
+    two = api.IVFFlatIndex(n_cells=64).build(x)
+    assert one.fingerprint() == two.fingerprint()
+

@@ -441,8 +441,8 @@ def test_factory_builds_hnsw_stack_on_cpu(corpus, queries):
 
 @pytest.mark.parametrize("spec,item", [
     ("HNSW32,SQ8", "item 9"), ("RAE64,HNSW32,PQ8x8,Rerank4", "item 9"),
-    ("Mut,RAE64,HNSW32,Rerank4", "item 11"), ("Shard2,HNSW32", "item 10"),
-    ("RAE64,IVF256,Rerank4", "item 5"),
+    ("Mut,RAE64,HNSW32,Rerank4", "item 11"),
+    ("Shard2,HNSW32,SQ8", "item 9"), ("Mut,RAE64,IVF256,Rerank4", "item 11"),
 ])
 def test_factory_names_the_roadmap_item_of_unported_stages(spec, item):
     with pytest.raises(NotImplementedError, match=item):

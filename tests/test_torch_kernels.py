@@ -26,7 +26,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import l2_topk as jax_l2_topk  # noqa: E402
 from repro.kernels import rae_encode as jax_rae_encode  # noqa: E402
-from repro_torch.kernels import l2_topk, rae_encode  # noqa: E402
+from repro.kernels import topk_merge as jax_topk_merge  # noqa: E402
+from repro.kernels.topk_merge.ref import topk_merge_ref as jax_merge_ref  # noqa: E402
+from repro_torch.kernels import l2_topk, rae_encode, topk_merge  # noqa: E402
 from repro_torch.kernels.common import NEG_INF, PAD_ID  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref  # noqa: E402
 
@@ -197,3 +199,109 @@ def test_l2_topk_scan_ref_orders_pads_before_penalised_rows():
 def test_l2_topk_rejects_unknown_metric():
     with pytest.raises(ValueError):
         l2_topk(torch.zeros((1, 2)), torch.zeros((3, 2)), 1, metric="dot")
+
+
+# ---------------------------------------------------------------------------
+# topk_merge
+# ---------------------------------------------------------------------------
+# (q, c, k, bq): the reference's parity cases (ragged Q with a pool that is
+# not lane-aligned, k wider than the pool, a one-candidate pool), then the
+# sharded search's shape (k1 = 40 from 8 shards) and an odd pool
+MERGE_CASES = [(19, 96, 8, 16), (4, 6, 10, 8), (5, 1, 3, 8),
+               (9, 320, 40, 8), (7, 45, 45, 8)]
+MERGE_PARAMS = ([(c, "f32") for c in MERGE_CASES]
+                + [(c, "bf16") for c in MERGE_CASES[:3]])
+
+
+def _merge_inputs(q_n, c, seed):
+    """Integer values (dense ties), ids unique per row with about 15%
+    pads, and one fully drained row: the reference's harness."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-4, 4, (q_n, c)).astype(np.float32)
+    ids = np.stack([rng.permutation(4 * c)[:c].astype(np.int32)
+                    for _ in range(q_n)])
+    ids[rng.random((q_n, c)) < 0.15] = -1
+    ids[0] = -1
+    return vals, ids
+
+
+def _assert_merge_bits(got, want):
+    """Ids equal, values equal bit for bit (the sign of zero too)."""
+    v, i = got[0].numpy(), got[1].numpy()
+    assert v.dtype == np.float32 and i.dtype == np.int32
+    np.testing.assert_array_equal(i, np.asarray(want[1]))
+    np.testing.assert_array_equal(v.view(np.int32),
+                                  np.asarray(want[0], np.float32)
+                                  .view(np.int32))
+
+
+@pytest.mark.parametrize(
+    "case,dtype", MERGE_PARAMS,
+    ids=[f"q{c[0]}-c{c[1]}-k{c[2]}-{dt}" for c, dt in MERGE_PARAMS])
+def test_topk_merge_matches_reference_and_pallas(case, dtype):
+    q_n, c, k, bq = case
+    vals, ids = _merge_inputs(q_n, c, q_n + c + k)
+    vj, vt = _pair(vals, dtype)
+    got = topk_merge(vt, torch.from_numpy(ids), k)
+    _assert_merge_bits(got, jax_merge_ref(vj.astype(jnp.float32),
+                                          jnp.asarray(ids), k))
+    want = jax_topk_merge(vj, jnp.asarray(ids), k, impl="pallas", bq=bq,
+                          interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    v, i = got[0].numpy(), got[1].numpy()
+    kv = min(k, c)  # the k > c tail (and drained rows) is canonical padding
+    assert np.all(v[:, kv:] == np.float32(NEG_INF)) and np.all(i[:, kv:] == -1)
+    assert np.all(i[0] == PAD_ID) and np.all(v[0] == np.float32(NEG_INF))
+
+
+def test_topk_merge_signed_zero_ties_break_to_the_lower_id():
+    """-0.0 and +0.0 compare equal: the lower id wins and each slot keeps
+    its own value. (Euclidean Flat scores are -0.0 at distance 0.) The
+    Pallas kernel writes the sweep's max instead, so against it only the
+    values' equality is checked, as ``==`` sees them."""
+    vals = np.array([[-0.0, 0.0, 0.0, -0.0, -1.0, 1.0]], np.float32)
+    ids = np.array([[9, 4, 7, 2, 0, 11]], np.int32)
+    got = topk_merge(torch.from_numpy(vals), torch.from_numpy(ids), 6)
+    assert got[1].tolist() == [[11, 2, 4, 7, 9, 0]]
+    assert np.signbit(got[0].numpy()[0]).tolist() == [False, True, False,
+                                                      False, True, True]
+    _assert_merge_bits(got, jax_merge_ref(jnp.asarray(vals),
+                                          jnp.asarray(ids), 6))
+    want = jax_topk_merge(jnp.asarray(vals), jnp.asarray(ids), 6,
+                          impl="pallas", bq=8, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_topk_merge_live_ids_at_neg_inf_keep_their_ids():
+    """A live id whose value is NEG_INF beats a pad (same value, pad id
+    ID_MAX) and comes out with its id, in the reference's ref and in its
+    Pallas kernel alike."""
+    vals = np.array([[NEG_INF, 3.0, 4.0, 5.0, NEG_INF],
+                     [NEG_INF, NEG_INF, 1.0, 1.0, 2.0]], np.float32)
+    ids = np.array([[6, -1, 8, 2, 1], [3, 4, -1, 0, -1]], np.int32)
+    got = topk_merge(torch.from_numpy(vals), torch.from_numpy(ids), 5)
+    assert got[1].tolist() == [[2, 8, 1, 6, -1], [0, 3, 4, -1, -1]]
+    _assert_merge_bits(got, jax_merge_ref(jnp.asarray(vals),
+                                          jnp.asarray(ids), 5))
+    want = jax_topk_merge(jnp.asarray(vals), jnp.asarray(ids), 5,
+                          impl="pallas", bq=8, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_topk_merge_live_ids_at_minus_inf_follow_the_reference_ref():
+    """A live id at -inf ranks after the pads (NEG_INF > -inf) and still
+    comes out with its id once k reaches it: the order of the reference's
+    ``ref.py``, which the port follows. (The reference's Pallas kernel
+    masks each taken entry to (NEG_INF, ID_MAX), which outranks -inf, so
+    it emits pads there instead: ROADMAP.md queue C.)"""
+    vals = np.array([[NEG_INF, 3.0, float("-inf"), 5.0, NEG_INF],
+                     [float("-inf"), NEG_INF, 1.0, 1.0, 2.0]], np.float32)
+    ids = np.array([[6, -1, 8, 2, 1], [3, 4, -1, 0, -1]], np.int32)
+    got = topk_merge(torch.from_numpy(vals), torch.from_numpy(ids), 5)
+    assert got[1].tolist() == [[2, 1, 6, -1, 8], [0, 4, -1, -1, 3]]
+    assert np.isneginf(got[0].numpy()[[0, 1], [4, 4]]).all()
+    _assert_merge_bits(got, jax_merge_ref(jnp.asarray(vals),
+                                          jnp.asarray(ids), 5))
