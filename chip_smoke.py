@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Three paths of the paper's deployment stacks run through the port's entry
+Five paths of the paper's deployment stacks run through the port's entry
 points (``repro_torch.api``). ``RAE64,Flat,Rerank4``: fit the RAE, encode
 the corpus and the queries (the hand-written ``rae_encode`` kernel), scan
 the reduced corpus for the stage-1 top-k (the hand-written ``l2_topk``
@@ -12,12 +12,19 @@ on the card one hand-written ``graph_beam`` hop a step, rerank.
 ``RAE64,Shard8,IVF256,Rerank4``: fit, encode, partition the reduced corpus
 into 8 shards of contiguous rows, build an IVF256 child per shard, fan the
 probe scans out on a thread pool, merge the ``[Q, k1 * 8]`` candidates
-with the hand-written ``topk_merge`` kernel, rerank. Phases:
+with the hand-written ``topk_merge`` kernel, rerank. ``RAE64,PQ8x8,
+Rerank4``: fit, encode, train 8 subspace codebooks, store 8-byte codes,
+scan them with the hand-written ``pq_adc`` kernel, rerank.
+``RAE64,HNSW32,SQ8,Rerank4`` / ``RAE64,HNSW32,PQ8x8,Rerank4``: the graph
+with a code payload, every hop one hand-written ``graph_beam_q`` launch.
+Phases:
 
 1. kernels against their plain PyTorch versions on the card;
-2. acceptance at the reference's bar: recall@10 >= 0.9 on the 20k x 256
-   corpus for the Flat, IVF256 and Shard8 IVF256 stacks, and save /
-   ``load_index`` answering identically;
+2. acceptance at the reference's bars on the 20k x 256 corpus: recall@10
+   >= 0.9 for the Flat and IVF256 stacks, the Shard8 IVF256 stack within
+   0.01 of its twin, ``RAE64,IVF256,PQ8x8,Rerank4`` >= 0.85 at <= 1/8 the
+   bytes per vector of ``RAE64,Flat``; save / ``load_index`` answering
+   identically;
 3. full size: the paper's 768-d ``imdb_like`` corpus at 1M rows and its
    3000-step schedule, 1024 queries in batches of 256, the kernel path's
    ids against the plain path's, and each kernel's time beside its bound,
@@ -35,18 +42,30 @@ with the hand-written ``topk_merge`` kernel, rerank. Phases:
    query at a time, build time by part, peak memory, two Shard8 builds with
    one fingerprint; ``Shard1/2/8,Flat`` bitwise equal to ``FlatIndex`` on a
    prime-sized integer corpus; and the merge kernel's time at the main
-   path's shape.
+   path's shape;
+6. the quantized tiers: ``RAE64,PQ8x8,Rerank4`` and
+   ``RAE64,IVF256,PQ8x8,Rerank4`` on phase 5's corpus and fit (no cut),
+   beside their twin ``RAE64,Flat,Rerank4``: recall@10, bytes per vector,
+   build time by part, latency in batches of 256 and one query at a time,
+   peak memory, the kernel path's ids against the plain path's; then
+   ``RAE64,HNSW32,SQ8,Rerank4`` and ``RAE64,HNSW32,PQ8x8,Rerank4`` with
+   phase 4's reducer on its 20k x 256 corpus (cut as phase 4 is), held to
+   the graph gates of ``scripts/check_bench.py`` against phase 4's f32
+   stack (gather bytes per hop at least 3x / 4x fewer, recall within
+   0.01), kernel-hop traversal == plain-hop traversal, a lone query == its
+   batch row; and both kernels' times at the main path's shapes.
 
-Every launch counter is set to 0 just before phases 3, 4 and 5 drive their
-path and read just after; a kernel of the path that did not launch fails
-the run. The last lines are a ``kernels`` JSON object, the card's name and
-power limit, and ``{"ok": true, "device": ...}``. A phase that fails is
-reported and the next one runs; if any failed, the script prints no result
-and exits with code 1. Without a CUDA card it exits with code 2 before any
-result.
+Every launch counter is set to 0 just before phases 3, 4, 5 and 6 drive
+their paths and read just after; a kernel of the path that did not launch
+fails the run. The last lines are a ``kernels`` JSON object, the card's
+name and power limit, and ``{"ok": true, "device": ...}``. A phase that
+fails is reported and the next one runs; if any failed, the script prints
+no result and exits with code 1. Without a CUDA card it exits with code 2
+before any result.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import os
@@ -119,23 +138,33 @@ def device_ms(fn, reps: int) -> tuple[float, bool]:
     return start.elapsed_time(end) / reps, held
 
 
-def device_busy_share(fn, kernel: str) -> tuple[float, float, float]:
+def device_busy_share(fn, kernel: str, tries: int = 3
+                      ) -> tuple[float, float, float]:
     """(host wall ms, share of it the card was busy, device ms of the
     kernels whose name holds ``kernel``) for one call of ``fn``, from a
     ``torch.profiler`` trace of the card's activity (kernel and copy
-    intervals merged). A busy share of 0 means the trace held no device
-    event."""
+    intervals merged). A trace that holds none of ``kernel``'s launches
+    has lost device events (seen once, in a run of every phase) and is
+    taken again, up to ``tries`` calls; if the last still holds none, its
+    kernel ms is 0 and the busy share is not a measurement. A busy share
+    of 0 means the trace held no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(tries):
         sync()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mine = sum(e.time_range.elapsed_us() for e in events if kernel in e.name)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        mine = sum(e.time_range.elapsed_us() for e in events
+                   if kernel in e.name)
+        if mine > 0:
+            break
+        log(f"trace {attempt + 1} of a call holds no {kernel} kernel")
     return wall * 1e3, busy_us(events) * 1e-3 / (wall * 1e3), mine * 1e-3
 
 
@@ -227,7 +256,119 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
                           "a tombstoned row surfaced")
     errs["graph_beam"] = phase_kernels_graph_beam(g)
     errs["topk_merge"] = phase_kernels_topk_merge(g)
+    errs["pq_adc"] = phase_kernels_pq_adc(g)
+    errs["graph_beam_q"] = phase_kernels_graph_beam_q(g)
     return errs
+
+
+def phase_kernels_pq_adc(g: torch.Generator) -> float:
+    """The ADC scan kernel against its plain version: ids equal and values
+    bit-equal in every case (both sum the LUT and the m entries in one
+    tree). Ragged Q and N, k > N (the op pads), d = 1, m in {1, 8, 16},
+    ksub in {16, 256}, k up to the kernel's limit."""
+    from repro_torch.kernels.pq_adc import pq_adc
+    from repro_torch.kernels.pq_adc.kernel import MAX_K
+    from repro_torch.kernels.pq_adc.ref import pq_adc_ref
+
+    worst, cases = 0.0, 0
+    shapes = [(100_003, 8, 256, 8, 320), (100_003, 8, 256, 8, MAX_K),
+              (100_003, 1, 16, 1, 10), (20_011, 16, 16, 4, 1),
+              (20_011, 16, 256, 2, 40), (77, 8, 256, 8, 100)]
+    for n, m, ksub, dsub, k in shapes:
+        codes = torch.randint(0, ksub, (n, m), device="cuda", generator=g,
+                              dtype=torch.uint8)
+        for integer in (True, False):
+            if integer:
+                q = torch.randint(-3, 4, (257, m * dsub), device="cuda",
+                                  generator=g).float()
+                cb = torch.randint(-3, 4, (m, ksub, dsub), device="cuda",
+                                   generator=g).float()
+            else:
+                q = torch.randn(257, m * dsub, device="cuda", generator=g)
+                cb = torch.randn(m, ksub, dsub, device="cuda", generator=g)
+            for nq in (1, 257):
+                v, i = pq_adc(q[:nq], cb, codes, k)
+                sync()
+                k_eff = min(k, n)
+                vr, ir = pq_adc_ref(q[:nq], cb, codes, k_eff)
+                err, _ = max_rel_err(v[:, :k_eff], vr)
+                worst = max(worst, err)
+                what = (f"pq_adc Q={nq} N={n} m={m} ksub={ksub} dsub={dsub} "
+                        f"k={k} integer={integer}")
+                check(torch.equal(i[:, :k_eff], ir), f"{what}: ids differ")
+                check(torch.equal(v[:, :k_eff].view(torch.int32),
+                                  vr.view(torch.int32)),
+                      f"{what}: values not bit-equal")
+                check(bool((i[:, k_eff:] == -1).all()
+                           and torch.isneginf(v[:, k_eff:]).all()),
+                      f"{what}: the k > N tail is not (-inf, -1)")
+                cases += 1
+    log(f"phase 1: pq_adc {cases} cases (Q in {{1, 257}}, (N, m, ksub, "
+        f"dsub, k) in {shapes}, integer and float inputs): ids equal and "
+        f"values bit-equal in all")
+    return worst
+
+
+def phase_kernels_graph_beam_q(g: torch.Generator) -> float:
+    """The quantized hop kernel against its plain version over 1M code
+    rows: ids equal and scores bit-equal in every case (both sum in
+    pairwise_sum's tree). SQ8 (d = 64 and d = 1) and PQ (m in {1, 8, 16},
+    ksub in {16, 256}), Q in {1, 257}, W in {1, 64, 1024}, ef in {1, 80,
+    4096}, about 25% masked slots, with and without db_mask."""
+    from repro_torch.kernels.graph_beam_q import graph_beam_q
+    from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
+
+    worst, cases = 0.0, 0
+    n = 1_000_003
+    grid = [(w, ef) for w in (1, 64, 1024) for ef in (1, 80, 4096)]
+    payloads = [("sq8", 64, 0, grid), ("pq", 8, 256, grid),
+                ("sq8", 1, 0, [(64, 80)]), ("pq", 1, 16, [(64, 80)]),
+                ("pq", 16, 16, [(1024, 4096), (64, 80)])]
+    mask = torch.rand(n, device="cuda", generator=g) > 0.25
+    for mode, c, ksub, shapes in payloads:
+        hi = 256 if mode == "sq8" else ksub
+        codes = torch.randint(0, hi, (n, c), device="cuda", generator=g,
+                              dtype=torch.uint8)
+        dop = c if mode == "sq8" else c * ksub
+        for integer in (True, False):
+            if integer:
+                q_op = torch.randint(-3, 4, (257, dop), device="cuda",
+                                     generator=g).float()
+                q_bias = torch.randint(-3, 4, (257,), device="cuda",
+                                       generator=g).float()
+                nb = torch.randint(0, 9, (n,), device="cuda",
+                                   generator=g).float()
+            else:
+                q_op = 0.1 * torch.randn(257, dop, device="cuda", generator=g)
+                q_bias = torch.randn(257, device="cuda", generator=g)
+                nb = torch.randn(n, device="cuda", generator=g).abs()
+            for nq in (1, 257):
+                for w, ef in shapes:
+                    empty = float("-inf") if nq == 1 else -1e30
+                    ids, bv, bi = beam_inputs(g, nq, n, w, ef, integer, empty)
+                    for db_mask in (None, mask):
+                        args = (q_op[:nq], q_bias[:nq], codes, nb, ids, bv, bi)
+                        v, i = graph_beam_q(*args, db_mask=db_mask, mode=mode,
+                                            ksub=ksub)
+                        sync()
+                        vr, ir = graph_beam_q_ref(*args, db_mask=db_mask,
+                                                  mode=mode, ksub=ksub)
+                        err, _ = max_rel_err(v, vr)
+                        worst = max(worst, err)
+                        what = (f"graph_beam_q {mode} C={c} ksub={ksub} "
+                                f"Q={nq} W={w} ef={ef} integer={integer} "
+                                f"mask={db_mask is not None}")
+                        check(torch.equal(i, ir), f"{what}: ids differ")
+                        check(torch.equal(v.view(torch.int32),
+                                          vr.view(torch.int32)),
+                              f"{what}: scores not bit-equal")
+                        cases += 1
+        del codes, nb
+    log(f"phase 1: graph_beam_q N={n}, {cases} cases (sq8 d in {{64, 1}}, "
+        f"pq (m, ksub) in {{(8, 256), (1, 16), (16, 16)}}, Q in {{1, 257}}, "
+        f"W in {{1, 64, 1024}}, ef in {{1, 80, 4096}}, integer and float, "
+        f"with and without db_mask): ids equal and scores bit-equal in all")
+    return worst
 
 
 def merge_inputs(g: torch.Generator, nq: int, c: int
@@ -363,22 +504,27 @@ def acceptance_data() -> tuple[np.ndarray, np.ndarray]:
 
 
 ACCEPTANCE_SPECS = ("RAE64,Flat,Rerank4", "RAE64,IVF256,Rerank4",
-                    "RAE64,Shard8,IVF256,Rerank4")
+                    "RAE64,Shard8,IVF256,Rerank4",
+                    "RAE64,IVF256,PQ8x8,Rerank4")
+#: the reference's quantized acceptance bar (tests/test_quantized.py:244)
+PQ_ACCEPTANCE = 0.85
 
 
 def phase_acceptance(device: str, steps: int = 1000) -> dict[str, float]:
-    """Each stack on the 20k x 256 corpus. The reference's bar: recall@10
+    """Each stack on the 20k x 256 corpus. The reference's bars: recall@10
     >= 0.9 for the two specs it gates (tests/test_api.py:255: Flat and
-    IVF256). The sharded stack is held to the reference's sharded gate,
-    recall within 0.01 of its unsharded twin (README, scripts/check_bench.py),
-    and its distance to 0.9 is printed."""
+    IVF256); for ``RAE64,IVF256,PQ8x8,Rerank4`` recall@10 >= 0.85 at <= 1/8
+    the bytes per vector of ``RAE64,Flat`` (tests/test_quantized.py:244).
+    The sharded stack is held to the reference's sharded gate, recall
+    within 0.01 of its unsharded twin (README, scripts/check_bench.py), and
+    its distance to 0.9 is printed."""
     from repro_torch import api
     from repro_torch.core import metrics
 
     corpus, queries = acceptance_data()
     gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
                              torch.as_tensor(corpus, device=device), 10)
-    recalls, failed = {}, []
+    recalls, failed, bpv = {}, [], {}
     for spec in ACCEPTANCE_SPECS:
         t0 = time.perf_counter()
         idx = api.index_factory(spec, reducer_kw={"steps": steps, "seed": 0},
@@ -393,12 +539,25 @@ def phase_acceptance(device: str, steps: int = 1000) -> dict[str, float]:
         same = bool(np.array_equal(res2.indices, res.indices)
                     and np.array_equal(res2.scores, res.scores))
         dt = time.perf_counter() - t0
+        bpv[spec] = idx.bytes_per_vector
         log(f"phase 2: {spec} on 20000x256, {steps} steps, 64 queries: "
             f"recall@10 {recall:.4f} ({round(recall * 640)} of 640 hits), "
-            f"distance_evals {res.distance_evals:.1f}, reload identical "
-            f"{same}, {dt:.2f} s")
+            f"distance_evals {res.distance_evals:.1f}, bytes_per_vector "
+            f"{bpv[spec]:g}, reload identical {same}, {dt:.2f} s")
         recalls[spec] = recall
-        if "Shard" in spec:
+        if "PQ" in spec:
+            flat = bpv[ACCEPTANCE_SPECS[0]]
+            log(f"phase 2: {spec}: recall@10 {recall:.4f} (bar "
+                f"{PQ_ACCEPTANCE}), bytes_per_vector {bpv[spec]:g} = "
+                f"1/{flat / bpv[spec]:.2f} of RAE64,Flat's {flat:g} (bar "
+                f"1/8)")
+            if recall < PQ_ACCEPTANCE:
+                failed.append(f"{spec}: acceptance recall@10 {recall} < "
+                              f"{PQ_ACCEPTANCE}")
+            if bpv[spec] > flat / 8:
+                failed.append(f"{spec}: {bpv[spec]} bytes per vector > 1/8 "
+                              f"of RAE64,Flat's {flat}")
+        elif "Shard" in spec:
             twin = recalls[spec.replace("Shard8,", "")]
             log(f"phase 2: {spec}: recall@10 - twin's = {recall - twin:+.4f} "
                 f"(gate: within 0.01); against the 0.9 bar "
@@ -740,7 +899,13 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
         f"{wall_ms:.3f} ms, card busy {busy:.4f} of it (idle share "
         f"{1.0 - busy:.4f}; 0 busy = no device event traced), graph_beam "
         f"kernels {hop_ms:.4f} ms of device time")
+    GRAPH_TWIN.update(idx=idx, res=res, recall=recall)
     return launches
+
+
+#: phase 4's f32 graph stack and its 64-query answer, the twin phase 6
+#: holds its quantized graphs against
+GRAPH_TWIN: dict = {}
 
 
 def graph_beam_time(launches: int, g: torch.Generator) -> dict:
@@ -803,6 +968,34 @@ def graph_beam_time(launches: int, g: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 5: the sharded IVF stack RAE64,Shard8,IVF256,Rerank4 at full width
 # ---------------------------------------------------------------------------
+@functools.cache
+def full_data(n: int, n_queries: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """``imdb_like`` at ``n`` rows and ``n_queries`` held-out queries (rows
+    shuffled), made once for phases 5 and 6; and the seconds it took."""
+    from repro_torch.data import paper_dataset
+
+    t0 = time.perf_counter()
+    data = paper_dataset("imdb_like", n=n + n_queries, seed=0)
+    return data[:n], data[n:], time.perf_counter() - t0
+
+
+@functools.cache
+def fitted_rae(n: int, n_queries: int, steps: int, device: str):
+    """The RAE64 fitted once on ``full_data(n, n_queries)`` at the paper's
+    schedule (``steps``, batch 128, seed 0), shared by the stacks of phases
+    5 and 6 (a phase whose fit failed leaves nothing cached: the next one
+    fits anew); and the seconds the fit took."""
+    from repro_torch import api
+
+    corpus = full_data(n, n_queries)[0]
+    reducer = api.make_reducer("rae", 64, steps=steps, batch_size=128,
+                               seed=0, device=device)
+    t0 = time.perf_counter()
+    reducer.fit(corpus)
+    sync()
+    return reducer, time.perf_counter() - t0
+
+
 SHARDED_SPECS = ("RAE64,IVF256,Rerank4", "RAE64,Shard8,IVF256,Rerank4")
 
 
@@ -864,7 +1057,6 @@ def phase_sharded(n: int, n_queries: int, batch: int, steps: int,
                   device: str) -> dict:
     from repro_torch import api
     from repro_torch.core import metrics
-    from repro_torch.data import paper_dataset
     from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
     from repro_torch.kernels.topk_merge import topk_merge
@@ -874,11 +1066,7 @@ def phase_sharded(n: int, n_queries: int, batch: int, steps: int,
 
     counters = {"rae_encode": rae_encode_cuda, "l2_topk": l2_topk_scan_cuda,
                 "topk_merge": topk_merge_cuda}
-    t0 = time.perf_counter()
-    data = paper_dataset("imdb_like", n=n + n_queries, seed=0)
-    corpus, queries = data[:n], data[n:]   # held-out queries
-    del data
-    t_data = time.perf_counter() - t0
+    corpus, queries, t_data = full_data(n, n_queries)
     reducer_kw = {"steps": steps, "batch_size": 128, "seed": 0}
     stacks = {spec: api.index_factory(spec, reducer_kw=reducer_kw,
                                       device=device)
@@ -889,11 +1077,9 @@ def phase_sharded(n: int, n_queries: int, batch: int, steps: int,
     # the main path, with every launch counter from 0
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    twin.reducer.fit(corpus)
-    sync()
-    t_fit = time.perf_counter() - t0
-    shard.reducer = twin.reducer          # one fit, shared by the stacks
+    reducer, t_fit = fitted_rae(n, n_queries, steps, device)
+    for idx in stacks.values():
+        idx.reducer = reducer             # one fit, shared by the stacks
     out, t_build = {}, {}
     for spec, idx in stacks.items():
         t0 = time.perf_counter()
@@ -1081,6 +1267,450 @@ def topk_merge_time(merge: dict) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the quantized tiers (PQ at full width, SQ8 / PQ graph payloads)
+# ---------------------------------------------------------------------------
+QUANT_FULL_SPECS = ("RAE64,PQ8x8,Rerank4", "RAE64,IVF256,PQ8x8,Rerank4",
+                    "RAE64,Flat,Rerank4")
+
+
+def plain_pq_path(idx, queries: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The PQ stack with every kernel replaced by its plain version."""
+    from repro_torch.kernels.pq_adc.ref import pq_adc_ref
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+    from repro_torch.search.twostage import rerank_candidates
+
+    zq = rae_encode_ref(queries, idx.reducer.params_["w_e"], False)
+    _, cand = pq_adc_ref(zq, idx.base._pq.codebooks, idx.base._codes,
+                         idx.stage1_k(k))
+    return rerank_candidates(queries, idx._db_full, cand, k, idx.metric)
+
+
+def phase_quantized_full(n: int, n_queries: int, batch: int, steps: int,
+                         device: str) -> dict:
+    """``RAE64,PQ8x8,Rerank4`` (the pq_adc kernel over 1M codes of 8 bytes)
+    and ``RAE64,IVF256,PQ8x8,Rerank4`` at full width, beside their twin
+    ``RAE64,Flat,Rerank4``, all three from one fitted reducer."""
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+    from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+    from repro_torch.search import ivf as ivf_lib
+    from repro_torch.search import quantize as qz
+    from repro_torch.search.twostage import rerank_candidates
+
+    counters = {"rae_encode": rae_encode_cuda, "l2_topk": l2_topk_scan_cuda,
+                "pq_adc": pq_adc_cuda}
+    corpus, queries, t_data = full_data(n, n_queries)
+    reducer_kw = {"steps": steps, "batch_size": 128, "seed": 0}
+    stacks = {spec: api.index_factory(spec, reducer_kw=reducer_kw,
+                                      device=device)
+              for spec in QUANT_FULL_SPECS}
+    pq_stack, ivf_stack, twin = (stacks[s] for s in QUANT_FULL_SPECS)
+    n_single = 32
+
+    # the main path, with every launch counter from 0
+    for fn in counters.values():
+        fn.launches = 0
+    reducer, t_fit = fitted_rae(n, n_queries, steps, device)
+    out, t_build, launches = {}, {}, {}
+    for spec, idx in stacks.items():
+        idx.reducer = reducer             # one fit, shared by the stacks
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        idx.build(corpus)
+        sync()
+        t_build[spec] = time.perf_counter() - t0
+        out[spec] = drive_stack(idx, queries, batch, n_single)
+        launches[spec] = {k: fn.launches - before[k]
+                          for k, fn in counters.items()}
+    total = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 6: main-path launches {total}; by stack {launches}")
+    searches = out[QUANT_FULL_SPECS[0]]["batches"] + n_single
+    check(total["pq_adc"] > 0 and total["rae_encode"] > 0,
+          f"a kernel of the quantized path never launched: {total}")
+    check(launches[QUANT_FULL_SPECS[0]]["pq_adc"] == searches,
+          f"one pq_adc launch per PQ search: "
+          f"{launches[QUANT_FULL_SPECS[0]]['pq_adc']} for {searches}")
+
+    # recall against the exact full-space scan (plain, not the main path)
+    t0 = time.perf_counter()
+    qt = torch.as_tensor(queries, device=device)
+    gt = metrics.knn_indices(qt, twin._db_full, 10)
+    t_gt = time.perf_counter() - t0
+    recall = {}
+    for spec in QUANT_FULL_SPECS:
+        o = out[spec]
+        recall[spec] = metrics.recall_at_k(torch.as_tensor(o["ids"],
+                                                           device=device), gt)
+        check(o["ids"].shape == (n_queries, 10) and (o["ids"] >= 0).all()
+              and (o["ids"] < n).all() and np.isfinite(o["scores"]).all(),
+              f"{spec}: shape, finite scores, ids in range")
+    for spec in QUANT_FULL_SPECS:
+        o = out[spec]
+        log(f"phase 6: {spec} on imdb_like {n}x768 (no cut), {steps} steps "
+            f"batch 128 (shared fit); {n_queries} queries k=10: recall@10 "
+            f"{recall[spec]:.4f}, bytes_per_vector "
+            f"{stacks[spec].bytes_per_vector:g}, "
+            f"distance_evals {o['evals']:.1f} a query; search latency per "
+            f"{batch}-query batch {[round(x * 1e3, 3) for x in o['lat']]} "
+            f"ms; one query at a time median "
+            f"{float(np.median(o['lat1'])) * 1e3:.3f} ms max "
+            f"{max(o['lat1']) * 1e3:.3f} ms over {n_single}; peak device "
+            f"memory of a batch {o['peak_gb']:.3f} GB ({o['batch_gb']:.3f} "
+            f"GB above the resident index); build {t_build[spec]:.3f} s; "
+            f"launches {launches[spec]}")
+    twin_recall = recall[QUANT_FULL_SPECS[2]]
+    log(f"phase 6: recall@10 - twin's: PQ8x8 "
+        f"{recall[QUANT_FULL_SPECS[0]] - twin_recall:+.4f}, IVF256,PQ8x8 "
+        f"{recall[QUANT_FULL_SPECS[1]] - twin_recall:+.4f}; exact ground "
+        f"truth {t_gt:.2f} s; data {t_data:.2f} s; fit {t_fit:.2f} s")
+
+    # build time by part: each piece run again on the reduced corpus
+    sync()
+    t0 = time.perf_counter()
+    z = reducer.transform(pq_stack._db_full)
+    sync()
+    t_encode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qz.pq_encode(pq_stack.base._pq, z)
+    sync()
+    t_pq_encode = time.perf_counter() - t0
+    ivb = ivf_stack.base
+    t0 = time.perf_counter()
+    coarse = ivf_lib.build(z, ivb.n_cells, kmeans_iters=ivb.kmeans_iters,
+                           seed=ivb.seed)
+    sync()
+    t_ivf = time.perf_counter() - t0
+    c, cap, d = coarse.list_vecs.shape
+    t0 = time.perf_counter()
+    qz.pq_encode(ivb._pq, coarse.list_vecs.reshape(c * cap, d))
+    sync()
+    t_list_encode = time.perf_counter() - t0
+    del coarse, z
+    train = (t_build[QUANT_FULL_SPECS[0]] - t_encode - t_pq_encode,
+             t_build[QUANT_FULL_SPECS[1]] - t_encode - t_ivf - t_list_encode)
+    log(f"phase 6: build by part: corpus encode {t_encode:.4f} s; PQ8x8: "
+        f"PQ train about {train[0]:.3f} s, code encode {t_pq_encode:.4f} s; "
+        f"IVF256,PQ8x8: IVF256 {t_ivf:.3f} s (nprobe {ivb.nprobe}, cap "
+        f"{cap}), PQ train about {train[1]:.3f} s, list encode "
+        f"({c * cap} slots) {t_list_encode:.4f} s")
+
+    # the kernel path against the plain path, first 128 queries
+    _, plain_ids = plain_pq_path(pq_stack, qt[:128], 10)
+    got = torch.as_tensor(out[QUANT_FULL_SPECS[0]]["ids"][:128],
+                          device=device)
+    same = int((got == plain_ids).sum())
+    log(f"phase 6: PQ8x8 kernel ids == plain ids on {got.shape[0]} queries: "
+        f"{same}/{got.numel()}")
+    check(same >= 0.99 * got.numel(), "PQ8x8 kernel path ids differ from "
+                                      "the plain path's")
+
+    # layers of one batch of the PQ stack, each timed on its own
+    qb = qt[:batch]
+    k1 = pq_stack.stage1_k(10)
+    sync()
+    t0 = time.perf_counter()
+    zq = reducer.transform(qb)
+    sync()
+    t_enc = time.perf_counter() - t0
+    layer = {}
+    for spec in QUANT_FULL_SPECS[:2]:
+        s1 = stacks[spec].base.search(zq, stacks[spec].stage1_k(10))
+        cand = torch.as_tensor(s1.indices, device=device)
+        sync()
+        t0 = time.perf_counter()
+        rerank_candidates(qb, stacks[spec]._db_full, cand, 10, "euclidean")
+        sync()
+        layer[spec] = (s1.latency_s, time.perf_counter() - t0)
+    log(f"phase 6: one {batch}-query batch by layer: encode "
+        f"{t_enc * 1e3:.3f} ms; PQ8x8 stage 1 (pq_adc, k1 = {k1}) "
+        f"{layer[QUANT_FULL_SPECS[0]][0] * 1e3:.3f} ms, rerank "
+        f"{layer[QUANT_FULL_SPECS[0]][1] * 1e3:.3f} ms; IVF256,PQ8x8 stage 1 "
+        f"(probe) {layer[QUANT_FULL_SPECS[1]][0] * 1e3:.3f} ms, rerank "
+        f"{layer[QUANT_FULL_SPECS[1]][1] * 1e3:.3f} ms")
+    wall_ms, busy, adc_ms = device_busy_share(
+        lambda: pq_stack.search(queries[:batch], 10), "pq_scan")
+    log(f"phase 6: one {batch}-query PQ8x8 search under torch.profiler: "
+        f"wall {wall_ms:.3f} ms, card busy {busy:.4f} of it (idle share "
+        f"{1.0 - busy:.4f}), pq_adc's scan kernel {adc_ms:.4f} ms of device "
+        f"time")
+    return {"launches": total["pq_adc"], "q": zq.contiguous(),
+            "cb": pq_stack.base._pq.codebooks, "codes": pq_stack.base._codes,
+            "k": k1}
+
+
+def pq_adc_time(full: dict) -> dict:
+    """The ADC scan kernel at the main path's shape (Q=256, N=1,000,003,
+    m=8, ksub=256, k=320) on a real batch and the real codes: its time
+    beside its bound, its plain version's and the library composite's
+    (LUT by einsum, then chunked gather + sum + torch.topk and a merge)."""
+    from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda
+    from repro_torch.kernels.pq_adc.ref import pq_adc_ref
+
+    q, cb, codes, k = full["q"], full["cb"], full["codes"], full["k"]
+    nq = q.shape[0]
+    n, m = codes.shape
+    ksub, dsub = cb.shape[1], cb.shape[2]
+    kv, ki = pq_adc_cuda(q, cb, codes, k)
+    pv, pi = pq_adc_ref(q, cb, codes, k)
+    check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32),
+                                              pv.view(torch.int32)),
+          "pq_adc kernel differs from its plain version on the main batch")
+    offs = (codes.long() + torch.arange(m, device=codes.device) * ksub)
+    rows = 1 << 16
+
+    def library():
+        qs = q.reshape(nq, m, dsub)
+        lut = ((qs * qs).sum(-1)[:, :, None]
+               - 2 * torch.einsum("qms,mjs->qmj", qs, cb)
+               + (cb * cb).sum(-1)[None]).reshape(nq, m * ksub)
+        vals, ids = [], []
+        for s in range(0, n, rows):
+            o = offs[s:s + rows]
+            dist = lut[:, o.reshape(-1)].reshape(nq, o.shape[0], m).sum(-1)
+            v, i = torch.topk(-dist, min(k, o.shape[0]), dim=1)
+            vals.append(v)
+            ids.append(i + s)
+        v, j = torch.topk(torch.cat(vals, 1), k, dim=1)
+        return v, torch.gather(torch.cat(ids, 1), 1, j)
+
+    ms, held_k = device_ms(lambda: pq_adc_cuda(q, cb, codes, k), reps=50)
+    plain, held_p = device_ms(lambda: pq_adc_ref(q, cb, codes, k), reps=3)
+    lib, held_l = device_ms(library, reps=5)
+    per_call = cuda_ms(lambda: pq_adc_cuda(q, cb, codes, k), reps=20)
+    top = 2048  # the top rung of rerank_k1 (KNOB_LADDER)
+    log(f"phase 6: pq_adc Q={nq} N={n} k={top}: kernel "
+        f"{cuda_ms(lambda: pq_adc_cuda(q, cb, codes, top), 2, 1):.4f} ms")
+    b_ms, b_by = bound(4.0 * nq * m * dsub + 4.0 * m * ksub * dsub
+                       + 1.0 * n * m + 8.0 * nq * k,
+                       6.0 * nq * m * ksub * dsub + 1.0 * nq * n * m)
+    log(f"phase 6: pq_adc Q={nq} N={n} m={m} ksub={ksub} k={k} (device "
+        f"time, card held busy while enqueuing: {held_k}, {held_p}, "
+        f"{held_l}): kernel {ms:.4f} ms, plain {plain:.4f} ms, einsum LUT + "
+        f"chunked gather + sum + torch.topk {lib:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}); one call from the host, back to back, {per_call:.4f} "
+        f"ms")
+    return {"name": "pq_adc", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pq_adc.cu",
+            "replaces": "src/repro/kernels/pq_adc/kernel.py:71",
+            "launches": full["launches"], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+GRAPH_QUANT_SPECS = ("RAE64,HNSW32,SQ8,Rerank4", "RAE64,HNSW32,PQ8x8,Rerank4")
+#: the graph gates of scripts/check_bench.py: gather bytes per hop at least
+#: this many times below the f32 twin's, post-rerank recall within 0.01
+GATHER_FLOORS = {"SQ8": 3.0, "PQ8x8": 4.0}
+
+
+def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
+                          n_single: int = 128) -> int:
+    """Both quantized graph stacks on the 20k x 256 corpus with phase 4's
+    reducer, held against phase 4's f32 twin; returns the main path's
+    graph_beam_q launches."""
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda
+    from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda
+    from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+    from repro_torch.search import hnsw
+
+    corpus, queries = acceptance_data()
+    noisy = noisy_queries(corpus, 1024, seed=2)
+    n = corpus.shape[0]
+    gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
+                             torch.as_tensor(corpus, device=device), 10)
+    if "idx" not in GRAPH_TWIN:            # phase 4 failed: its own twin
+        twin = api.index_factory("RAE64,HNSW32,Rerank4",
+                                 reducer_kw={"steps": steps, "seed": 0},
+                                 device=device).build(corpus)
+        res = twin.search(queries, 10)
+        GRAPH_TWIN.update(idx=twin, res=res, recall=metrics.recall_at_k(
+            torch.as_tensor(res.indices, device=device), gt))
+    twin, twin_res = GRAPH_TWIN["idx"], GRAPH_TWIN["res"]
+    twin_recall = GRAPH_TWIN["recall"]
+    twin_bytes = twin_res.stats["gather_bytes_per_hop"]
+    counters = {"rae_encode": rae_encode_cuda, "graph_beam": graph_beam_cuda,
+                "graph_beam_q": graph_beam_q_cuda}
+    stacks, t_build, runs = {}, {}, {}
+
+    # the main path, with every launch counter from 0
+    for fn in counters.values():
+        fn.launches = 0
+    for spec in GRAPH_QUANT_SPECS:
+        idx = api.index_factory(spec, reducer_kw={"steps": steps, "seed": 0},
+                                device=device)
+        idx.reducer = twin.reducer         # phase 4's fit: the same graph
+        t0 = time.perf_counter()
+        idx.build(corpus)
+        sync()
+        t_build[spec] = time.perf_counter() - t0
+        res = idx.search(queries, 10)
+        batches, per_batch = [], []
+        for s in range(0, len(noisy), batch):
+            before = graph_beam_q_cuda.launches
+            r = idx.search(noisy[s:s + batch], 10)
+            batches.append(r)
+            per_batch.append((r.latency_s, r.stats["beam_hops"],
+                              graph_beam_q_cuda.launches - before))
+        singles = [idx.search(noisy[i:i + 1], 10) for i in range(n_single)]
+        stacks[spec] = idx
+        runs[spec] = (res, batches, per_batch, singles)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"phase 6: graph main-path launches {launches}")
+    check(launches["graph_beam_q"] > 0 and launches["rae_encode"] > 0,
+          f"a kernel of the quantized graph path never launched: {launches}")
+    check(launches["graph_beam"] == 0,
+          "a quantized graph launched the f32 hop")
+
+    failed = []
+    for spec in GRAPH_QUANT_SPECS:
+        idx = stacks[spec]
+        res, batches, per_batch, singles = runs[spec]
+        codec = spec.split(",")[2]
+        recall = metrics.recall_at_k(torch.as_tensor(res.indices,
+                                                     device=device), gt)
+        ratio = twin_bytes / res.stats["gather_bytes_per_hop"]
+        with tempfile.TemporaryDirectory() as tmp:
+            idx.save(tmp)
+            res2 = api.load_index(tmp, device=device).search(queries, 10)
+        reload_same = bool(np.array_equal(res2.indices, res.indices)
+                           and np.array_equal(res2.scores, res.scores))
+        ids = np.concatenate([r.indices for r in batches])
+        single_ids = np.concatenate([r.indices for r in singles])
+        same_single = int((single_ids == ids[:n_single]).all(axis=1).sum())
+        log(f"phase 6: {spec} on {n}x256, phase 4's reducer, 64 queries: "
+            f"recall@10 {recall:.4f} (f32 twin {twin_recall:.4f}, "
+            f"{recall - twin_recall:+.4f}; gate -0.01), gather bytes per "
+            f"hop {res.stats['gather_bytes_per_hop']:.1f} (twin "
+            f"{twin_bytes:.1f}: {ratio:.2f}x fewer; gate "
+            f"{GATHER_FLOORS[codec]}x), bytes_per_vector "
+            f"{idx.bytes_per_vector:.1f} (twin {twin.bytes_per_vector:.1f}), "
+            f"distance_evals {res.distance_evals:.1f}, beam hops "
+            f"{res.stats['beam_hops']:.0f}; build {t_build[spec]:.2f} s "
+            f"(encode, host graph build, codec on the card); reload "
+            f"identical {reload_same}")
+        log(f"phase 6: {spec}: batches of {batch}: latency ms "
+            f"{[round(p[0] * 1e3, 3) for p in per_batch]}, layer-0 hops "
+            f"{[int(p[1]) for p in per_batch]}, graph_beam_q launches "
+            f"{[p[2] for p in per_batch]}; one query at a time: latency "
+            f"median {np.median([r.latency_s for r in singles]) * 1e3:.3f} ms"
+            f" over {n_single}, == its batch row (ids) for "
+            f"{same_single}/{n_single}")
+        if recall < twin_recall - 0.01:
+            failed.append(f"{spec}: recall {recall} more than 0.01 below "
+                          f"the f32 twin's {twin_recall}")
+        if ratio < GATHER_FLOORS[codec]:
+            failed.append(f"{spec}: gather bytes only {ratio:.2f}x below "
+                          f"the twin's")
+        if not reload_same:
+            failed.append(f"{spec}: load_index answers differ")
+        if same_single < 0.99 * n_single or not all(
+                np.isfinite(r.scores).all() for r in batches) \
+                or ids.shape != (len(noisy), 10) or (ids < 0).any():
+            failed.append(f"{spec}: answers alone differ from the batch's, "
+                          f"or are not finite, in range and full")
+
+        # the kernel-hop traversal against the plain-hop one, same graph
+        g = idx.base._g
+        zq = idx.reducer.transform(torch.as_tensor(noisy, device=device))
+        k1 = idx.stage1_k(10)
+        ef = max(idx.base.ef_search, k1)
+        kern = hnsw.search_batched(g, zq, k1, ef_search=ef, device=device)
+        plain = hnsw.search_batched(g, zq, k1, ef_search=ef, device=device,
+                                    hop=graph_beam_q_ref)
+        agree = int((kern[1] == plain[1]).all(dim=1).sum())
+        log(f"phase 6: {spec}: kernel-hop traversal == plain-hop traversal "
+            f"(ids) for {agree}/{len(noisy)} queries; scores bit-equal "
+            f"{bool(torch.equal(kern[0], plain[0]))}; evals equal "
+            f"{bool(torch.equal(kern[2], plain[2]))}; hops {kern[3]} / "
+            f"{plain[3]}")
+        if agree < len(noisy):
+            failed.append(f"{spec}: kernel and plain traversals differ")
+        wall_ms, busy, hop_ms = device_busy_share(
+            lambda: idx.search(noisy[:batch], 10), "graph_beam_q")
+        log(f"phase 6: {spec}: one {batch}-query search under "
+            f"torch.profiler: wall {wall_ms:.3f} ms, card busy {busy:.4f} of "
+            f"it (idle share {1.0 - busy:.4f}), graph_beam_q kernels "
+            f"{hop_ms:.4f} ms of device time")
+    check(not failed, "; ".join(failed))
+    return launches["graph_beam_q"]
+
+
+def graph_beam_q_time(launches: int, g: torch.Generator) -> dict:
+    """The quantized hop at the graph path's batch shape (Q=256, W=64 =
+    2M at M=32, ef=80) over 1M synthetic code rows, all slots valid, for
+    SQ8 at d=64 (the kernels line) and PQ8x8: time beside the bound, the
+    plain version's and the PyTorch composite's (gather, einsum or LUT
+    gather + sum, torch.topk). The ids rotate through 20 random sets."""
+    from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda
+    from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
+
+    nq, n, w, ef = 256, 1_000_000, 64, 80
+    id_sets = [torch.randint(0, n, (nq, w), device="cuda", generator=g,
+                             dtype=torch.int32) for _ in range(20)]
+    bv = torch.sort(-128.0 + 23.0 * torch.randn(nq, ef, device="cuda",
+                                                 generator=g),
+                    dim=1, descending=True).values
+    bi = torch.randint(0, n, (nq, ef), device="cuda", generator=g,
+                       dtype=torch.int32)
+    nb = torch.rand(n, device="cuda", generator=g) * 100.0
+    q_bias = torch.randn(nq, device="cuda", generator=g)
+    entry = None
+    for mode, c, ksub in (("sq8", 64, 0), ("pq", 8, 256)):
+        codes = torch.randint(0, 256, (n, c), device="cuda", generator=g,
+                              dtype=torch.uint8)
+        dop = c if mode == "sq8" else c * ksub
+        q_op = torch.randn(nq, dop, device="cuda", generator=g)
+        turn = itertools.cycle(id_sets)
+        offs = torch.arange(c, device="cuda") * ksub
+
+        def library():
+            i = next(turn).long()
+            if mode == "sq8":
+                s = torch.einsum("qwc,qc->qw", codes[i].float(), q_op)
+            else:
+                o = (codes[i].long() + offs).reshape(nq, -1)
+                s = torch.gather(q_op, 1, o).reshape(nq, w, c).sum(-1)
+            s = s + q_bias[:, None] - nb[i]
+            v, j = torch.topk(torch.cat([bv, s], dim=1), ef, dim=1)
+            return v, torch.gather(torch.cat([bi, i.int()], dim=1), 1, j)
+
+        def kernel():
+            return graph_beam_q_cuda(q_op, q_bias, codes, nb, next(turn), bv,
+                                     bi, mode, ksub)
+
+        def plain():
+            return graph_beam_q_ref(q_op, q_bias, codes, nb, next(turn), bv,
+                                    bi, mode=mode, ksub=ksub)
+
+        ms, held_k = device_ms(kernel, reps=200)
+        plain_ms, held_p = device_ms(plain, reps=20)
+        lib, held_l = device_ms(library, reps=50)
+        per_call = cuda_ms(kernel, reps=200)
+        b_ms, b_by = bound(4.0 * nq * dop + 4.0 * nq + nq * w * (c + 8.0)
+                           + 16.0 * nq * ef,
+                           (2.0 if mode == "sq8" else 1.0) * nq * w * c
+                           + 3.0 * nq * w)
+        log(f"phase 6: graph_beam_q {mode} C={c} Q={nq} N={n} W={w} ef={ef} "
+            f"(device time, card held busy while enqueuing: {held_k}, "
+            f"{held_p}, {held_l}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, gather + {'einsum' if mode == 'sq8' else 'LUT gather + sum'}"
+            f" + torch.topk {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); one "
+            f"call from the host, back to back, {per_call:.4f} ms")
+        if entry is None:                  # SQ8 d=64 is the kernels line
+            entry = {"name": "graph_beam_q", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/graph_beam_q.cu",
+                     "replaces": "src/repro/kernels/graph_beam_q/kernel.py:78",
+                     "launches": launches, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1128,11 +1758,19 @@ def main() -> int:
                               steps=3000, device="cuda")
         return topk_merge_time(merge)
 
+    def quantized():
+        full = phase_quantized_full(n=1_000_003, n_queries=1024, batch=256,
+                                    steps=3000, device="cuda")
+        entry = pq_adc_time(full)
+        del full
+        return [entry, graph_beam_q_time(phase_quantized_graph("cuda"), g)]
+
     errs = run("phase 1", phase_kernels, g)
     run("phase 2", phase_acceptance, "cuda")
     kernels = run("phase 3", full_flat) or []
     kernels.append(run("phase 4", graph))
     kernels.append(run("phase 5", sharded))
+    kernels.extend(run("phase 6", quantized) or [])
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures),
               file=sys.stderr)

@@ -23,6 +23,7 @@ from .index import (
     snap_knob,
 )
 from .graph import HNSWIndex
+from .quantized import IVFPQIndex, IVFSQ8Index, PQIndex, SQ8Index
 from .sharded import ShardedIndex
 from .factory import IndexSpec, index_factory, parse_index_spec
 
@@ -30,10 +31,14 @@ __all__ = [
     "FlatIndex",
     "HNSWIndex",
     "IVFFlatIndex",
+    "IVFPQIndex",
+    "IVFSQ8Index",
     "IndexSpec",
     "KNOB_LADDER",
+    "PQIndex",
     "RAEReducer",
     "Reducer",
+    "SQ8Index",
     "SearchParams",
     "SearchResult",
     "ShardedIndex",

@@ -11,10 +11,13 @@ case-insensitive)::
     quant    := "SQ8" | "PQ" m "x" bits     # bits in 1..8
     rerank   := "Rerank" factor             # requires a reducer stage
 
-``index_factory`` builds ``[RAE<m>,][Shard<S>,](Flat|IVF<n>|HNSW<M>)
-[,Rerank<f>]``; every other stage raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it. ``str(spec)`` renders a parsed spec back
-canonically.
+``index_factory`` builds ``[RAE<m>,][Shard<S>,]stack[,Rerank<f>]`` for
+every stack of the grammar (the reference's ``_make_base`` mapping: ``SQ8``
+and ``PQ<m>x<bits>`` alone are the flat quantized tiers, after ``IVF<n>``
+the IVF-quantized ones, after ``HNSW<M>`` the graph's code payload); the
+``Mut`` prefix and the baseline reducers raise ``NotImplementedError``
+naming the ``ROADMAP.md`` item that ports them. ``str(spec)`` renders a
+parsed spec back canonically.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from .graph import HNSWIndex
 from .index import FlatIndex, IVFFlatIndex, TwoStageIndex, VectorIndex
+from .quantized import IVFPQIndex, IVFSQ8Index, PQIndex, SQ8Index
 from .reducer import list_reducers, make_reducer
 from .sharded import ShardedIndex
 
@@ -204,13 +208,44 @@ def _not_ported(parsed: IndexSpec) -> Optional[str]:
     """The ROADMAP.md item that ports the first unported stage, if any."""
     if parsed.mutable:
         return "Mut (live mutation): ROADMAP.md queue A item 11"
-    if parsed.quant is not None:
-        return "SQ8 / PQ<m>x<bits> (quantized tiers): ROADMAP.md queue A " \
-               "item 9"
     if parsed.reducer is not None and parsed.reducer not in list_reducers():
         return f"reducer {parsed.reducer.upper()} (baseline reducers): " \
                f"ROADMAP.md queue A item 8"
     return None
+
+
+def _make_base(parsed: IndexSpec, metric: str, index_kw: dict[str, Any],
+               device: str | torch.device) -> VectorIndex:
+    """Map (base, quant) to the index class, as the reference's."""
+    if parsed.quant is not None and metric != "euclidean":
+        raise ValueError("quantized tiers support euclidean only")
+    if parsed.base == "hnsw":
+        if metric != "euclidean":
+            raise ValueError("HNSW base supports euclidean only")
+        if parsed.quant == "sq8":
+            index_kw.setdefault("quant", "sq8")
+        elif parsed.quant == "pq":
+            index_kw.setdefault("quant", "pq")
+            index_kw.setdefault("pq_m", parsed.pq_m)
+            index_kw.setdefault("pq_bits", parsed.pq_bits)
+        return HNSWIndex(m=parsed.hnsw_m, device=device, **index_kw)
+    if parsed.base == "ivf":
+        if metric != "euclidean":
+            raise ValueError("IVF base supports euclidean only")
+        if parsed.quant == "sq8":
+            return IVFSQ8Index(n_cells=parsed.n_cells, device=device,
+                               **index_kw)
+        if parsed.quant == "pq":
+            return IVFPQIndex(n_cells=parsed.n_cells, m=parsed.pq_m,
+                              bits=parsed.pq_bits, device=device, **index_kw)
+        return IVFFlatIndex(n_cells=parsed.n_cells, device=device,
+                            **index_kw)
+    if parsed.quant == "sq8":
+        return SQ8Index(device=device, **index_kw)
+    if parsed.quant == "pq":
+        return PQIndex(m=parsed.pq_m, bits=parsed.pq_bits, device=device,
+                       **index_kw)
+    return FlatIndex(metric=metric, device=device, **index_kw)
 
 
 def index_factory(spec: str, *, metric: str = "euclidean",
@@ -220,7 +255,9 @@ def index_factory(spec: str, *, metric: str = "euclidean",
     """Build an (unbuilt) index stack from ``spec`` on ``device``.
 
     ``reducer_kw`` is forwarded to the reducer constructor (e.g. RAE's
-    ``steps`` / ``seed``); ``index_kw`` to the base index. Call
+    ``steps`` / ``seed``); ``index_kw`` to the base index (e.g. IVF's
+    ``nprobe``, PQ's ``kmeans_iters``). A sharded stack's children run on
+    a thread pool, quantized children included, as in the reference. Call
     ``.build(corpus)`` on the result."""
     parsed = parse_index_spec(spec)
     missing = _not_ported(parsed)
@@ -233,19 +270,8 @@ def index_factory(spec: str, *, metric: str = "euclidean",
         stack: VectorIndex = ShardedIndex(
             n_shards=parsed.shards, child_spec=child_spec, metric=metric,
             workers="threads", index_kw=dict(index_kw or {}), device=device)
-    elif parsed.base == "hnsw":
-        if metric != "euclidean":
-            raise ValueError("HNSW base supports euclidean only")
-        stack = HNSWIndex(m=parsed.hnsw_m, device=device,
-                          **dict(index_kw or {}))
-    elif parsed.base == "ivf":
-        if metric != "euclidean":
-            raise ValueError("IVF base supports euclidean only")
-        stack = IVFFlatIndex(n_cells=parsed.n_cells, device=device,
-                             **dict(index_kw or {}))
     else:
-        stack = FlatIndex(metric=metric, device=device,
-                          **dict(index_kw or {}))
+        stack = _make_base(parsed, metric, dict(index_kw or {}), device)
     if parsed.reducer is not None:
         reducer = make_reducer(parsed.reducer, parsed.out_dim, device=device,
                                **dict(reducer_kw or {}))

@@ -4,8 +4,11 @@ the CUDA source in ``csrc/``, ``ref.py`` is the plain PyTorch version, and
 ``ops.py`` takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor."""
 from .graph_beam import graph_beam
+from .graph_beam_q import graph_beam_q
 from .l2_topk import l2_topk
+from .pq_adc import pq_adc
 from .rae_encode import rae_encode
 from .topk_merge import topk_merge
 
-__all__ = ["graph_beam", "l2_topk", "rae_encode", "topk_merge"]
+__all__ = ["graph_beam", "graph_beam_q", "l2_topk", "pq_adc", "rae_encode",
+           "topk_merge"]

@@ -54,7 +54,6 @@ def graph_beam_ref(queries: torch.Tensor, db: torch.Tensor,
     ids = nbr_ids.to(torch.int32)
     bv = beam_v.float()
     bi = beam_i.to(torch.int32)
-    ef = bv.shape[1]
     valid = ids >= 0
     safe = torch.where(valid, ids, torch.zeros_like(ids)).long()
     if db_mask is not None:
@@ -67,11 +66,21 @@ def graph_beam_ref(queries: torch.Tensor, db: torch.Tensor,
     s = 2.0 * pairwise_sum(g * q[:, None, :])
     s = s - db_sq.float()[safe]
     s = s - q_sq.float()[:, None]
+    return merge_into_beam(bv, bi, s, ids, valid)
+
+
+def merge_into_beam(bv: torch.Tensor, bi: torch.Tensor, s: torch.Tensor,
+                    ids: torch.Tensor, valid: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge candidate scores ``s`` [Q, W] (ids [Q, W]; slots not
+    ``valid`` become ``(NEG_INF, -1)``) into the beam ``(bv, bi)`` [Q, ef]:
+    the first ef entries of a stable descending sort of [beam, candidates],
+    pads canonicalized. Shared by the f32 and the quantized hops."""
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     allv = torch.cat([bv, s], dim=1)
     alli = torch.cat([bi, torch.where(valid, ids, torch.full_like(ids, -1))],
                      dim=1)
     order = torch.sort(allv, dim=1, descending=True,
-                       stable=True).indices[:, :ef]
+                       stable=True).indices[:, :bv.shape[1]]
     return canonicalize_pads(torch.gather(allv, 1, order),
                              torch.gather(alli, 1, order))

@@ -1,7 +1,6 @@
 """HNSW graph search (Malkov & Yashunin 2016): the sublinear search tier.
 
-The port of the reference's ``search/hnsw.py`` for f32 payloads. Two
-halves:
+The port of the reference's ``search/hnsw.py``. Two halves:
 
 * **Host side, numpy, line for line.** Level sampling, the sequential
   heuristic insert (:func:`build`), :func:`reassign_entry` and the
@@ -10,18 +9,20 @@ halves:
   equal (``levels``, ``links0``, ``links``, ``entry``). The graph is built
   on the host: a build on the device is a feature the reference lacks.
 * **Device side, PyTorch.** :func:`search_batched` is the port of the
-  reference's one-dispatch traversal (``_traverse_impl``, f32 mode) as
-  PyTorch ops on the index's device: the entry seed, the greedy descent
-  through the upper layers (an ef=1 beam) and the layer-0 best-first beam
-  are each one ``graph_beam`` hop per step for the whole batch (the
-  hand-written CUDA kernel on the card). The loop conditions are read on
-  the host, one sync per hop.
+  reference's one-dispatch traversal (``_traverse_impl``) as PyTorch ops on
+  the index's device: the entry seed, the greedy descent through the upper
+  layers (an ef=1 beam) and the layer-0 best-first beam are each one hop
+  per step for the whole batch. The hop is ``graph_beam`` over float32
+  rows, or ``graph_beam_q`` over a quantized payload when the graph
+  carries a :class:`GraphCodes` codec (SQ8 or PQ codes, uint8 on the
+  device); each is a hand-written CUDA kernel on the card. The loop
+  conditions are read on the host, one sync per hop.
 
 Not ported here: the reference's ``impl="fused"`` route of
 ``candidate_distances`` through ``l2_topk`` (one launch and one sync per
 hop of about a hundred candidates, chosen from JAX's backend), its host
-frontier-E driver (``_search_batched_np``), ``insert_batch`` and the
-quantized payloads (``GraphCodes``); ``ROADMAP.md`` lists them.
+frontier-E driver (``_search_batched_np``) and ``insert_batch``;
+``ROADMAP.md`` lists them.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import torch
 from ..kernels.common import NEG_INF
 from ..kernels.graph_beam import graph_beam
 from ..kernels.graph_beam.ref import pairwise_sum
+from ..kernels.graph_beam_q import graph_beam_q
+from . import quantize as qz
 
 _MAX_LEVEL = 15
 
@@ -79,10 +82,103 @@ class PackedHNSW:
 
 
 @dataclass
+class GraphCodes:
+    """Quantized traversal payload riding beside the packed graph: per-node
+    SQ8 or PQ codes and the codec state that scores them. Attached as
+    ``graph.codec``, it makes every step of :func:`search_batched` (the
+    entry seed, the descent, layer 0) gather code rows instead of float32
+    rows: 68 bytes a neighbour for SQ8 and 12 for PQ8x8 at d=64, against
+    260 for the float32 row and norm. The arrays are kept on the host
+    (saved, fingerprinted) and uploaded once per device, codes as uint8.
+    The hop's affine score form is ``kernels/graph_beam_q``'s."""
+
+    kind: str                 # "sq8" | "pq"
+    codes: np.ndarray         # [N, C] uint8 (sq8: C = d; pq: C = m)
+    node_bias: np.ndarray     # [N] f32 (sq8: |decode(c)|^2; pq: zeros)
+    vmin: Optional[np.ndarray] = None        # sq8 [d] f32
+    step: Optional[np.ndarray] = None        # sq8 [d] f32
+    codebooks: Optional[np.ndarray] = None   # pq [m, ksub, dsub] f32
+    _dev: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def ksub(self) -> int:
+        """LUT stride: the trained PQ codebook width (may be < 2**bits on
+        tiny corpora); 0 for SQ8."""
+        return 0 if self.codebooks is None else int(self.codebooks.shape[1])
+
+    @property
+    def gather_bytes(self) -> int:
+        """Bytes the hop streams per gathered neighbour: the uint8 code row
+        and its f32 bias (the float32 hop's is ``4 d + 4``)."""
+        return int(self.codes.shape[1]) + 4
+
+    def device_arrays(self, device: torch.device
+                      ) -> tuple[torch.Tensor, ...]:
+        """(codes uint8, node_bias, c0, c1) on ``device``, uploaded once:
+        c0, c1 = (vmin, step) for SQ8, (codebooks, None) for PQ."""
+        key = str(device)
+        if key not in self._dev:
+            pair = ((self.vmin, self.step) if self.kind == "sq8"
+                    else (self.codebooks, None))
+            self._dev[key] = tuple(
+                None if a is None else torch.as_tensor(a, device=device)
+                for a in (self.codes, self.node_bias) + pair)
+        return self._dev[key]
+
+    def query_operands(self, q: torch.Tensor, q_sq: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-query hop operands ``(q_op [Q, Dop], q_bias [Q])`` on q's
+        device, built once per search. SQ8: ``q_op = 2 q * step``,
+        ``q_bias = 2 q.vmin - |q|^2``, so the hop scores ``-|q -
+        decode(c)|^2``. PQ: the negated flattened ADC LUT
+        (:func:`~repro_torch.search.quantize.adc_lut`) and a zero bias, so
+        the hop scores ``-ADC distance``. Every reduction is a
+        :func:`pairwise_sum`, never a matmul: a row's operands do not
+        depend on its batch-mates, so a query answers the same alone and
+        in a batch."""
+        _, _, c0, c1 = self.device_arrays(q.device)
+        if self.kind == "sq8":
+            q_op = 2.0 * q * c1[None, :]
+            q_bias = 2.0 * pairwise_sum(q * c0[None, :]) - q_sq
+            return q_op, q_bias
+        return (-qz.adc_lut(c0, q).reshape(q.shape[0], -1),
+                torch.zeros(q.shape[0], device=q.device))
+
+
+def make_graph_codes(vecs: np.ndarray, kind: str, m: int = 8, bits: int = 8,
+                     iters: int = 15, seed: int = 0,
+                     device: str | torch.device = "cuda",
+                     init: Optional[list[np.ndarray]] = None) -> GraphCodes:
+    """Train a quantized traversal payload over the (reduced) corpus the
+    graph was built on, on ``device``. ``kind`` = "sq8" | "pq"; ``m``,
+    ``bits``, ``iters``, ``seed`` and ``init`` (the m k-means row draws,
+    see :func:`~repro_torch.search.quantize.pq_train`) train PQ and are
+    ignored for SQ8. Attach the result as ``graph.codec``: the float32
+    vectors stay (build and the sequential engine use them)."""
+    v = torch.as_tensor(np.asarray(vecs, np.float32), device=device)
+    if kind == "sq8":
+        sq = qz.sq8_train(v)
+        codes = qz.sq8_encode(sq, v)
+        return GraphCodes(
+            kind="sq8", codes=codes.cpu().numpy(),
+            node_bias=qz.sq8_recon_sq_norms(sq, codes).cpu().numpy(),
+            vmin=sq.vmin.cpu().numpy(), step=sq.step.cpu().numpy())
+    if kind != "pq":
+        raise ValueError(f"graph codec kind must be 'sq8' or 'pq', "
+                         f"got {kind!r}")
+    pq = qz.pq_train(v, m, bits=bits, iters=iters, seed=seed, init=init)
+    return GraphCodes(kind="pq", codes=qz.pq_encode(pq, v).cpu().numpy(),
+                      node_bias=np.zeros(v.shape[0], np.float32),
+                      codebooks=pq.codebooks.cpu().numpy())
+
+
+@dataclass
 class HNSWGraph:
     """Padded-dense adjacency: ``links0`` [N, 2M] is layer 0, ``links``
     [L, N, M] are layers 1..L (-1 = empty slot; rows of nodes absent from
-    a layer are all -1)."""
+    a layer are all -1). ``codec``, when set, makes the batched traversal
+    score its quantized payload instead of float32 rows; the sequential
+    engine always scores float32."""
 
     vecs: np.ndarray     # [N, d] float32
     levels: np.ndarray   # [N] int32: top layer of each node
@@ -92,6 +188,8 @@ class HNSWGraph:
     M: int
     packed: Optional[PackedHNSW] = field(default=None, repr=False,
                                          compare=False)
+    codec: Optional[GraphCodes] = field(default=None, repr=False,
+                                        compare=False)
 
     @property
     def ntotal(self) -> int:
@@ -396,20 +494,23 @@ def search(graph: HNSWGraph, queries: np.ndarray, k: int,
 def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
                    alive: Optional[np.ndarray] = None,
                    device: str | torch.device = "cuda",
-                   hop: Callable = graph_beam
+                   hop: Optional[Callable] = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Batched beam search over the packed adjacency, on ``device``.
 
-    The port of the reference's jitted traversal (``_traverse_impl``, f32
-    payloads): greedy descent through the upper layers, then a best-first
-    beam of width ``ef = max(ef_search, k)`` at layer 0, the whole batch
-    advancing together in exact best-first order. Every step is one
-    ``hop`` (the ``graph_beam`` op: the CUDA kernel on the card; the plain
-    version may be passed to compare) for all queries: the entry seed, each
-    descent step (an ef=1 beam; ties keep the current node, which is the
-    sequential stop condition) and each layer-0 expansion. Visited state
-    is a ``[Q, N]`` uint8 stamp matrix (0 unseen, 1 seen, 2 expanded),
-    zeroed for each search.
+    The port of the reference's jitted traversal (``_traverse_impl``):
+    greedy descent through the upper layers, then a best-first beam of
+    width ``ef = max(ef_search, k)`` at layer 0, the whole batch advancing
+    together in exact best-first order. Every step is one ``hop`` for all
+    queries: the entry seed, each descent step (an ef=1 beam; ties keep the
+    current node, which is the sequential stop condition) and each layer-0
+    expansion. The hop is the ``graph_beam`` op over float32 rows, or, when
+    ``graph.codec`` is set, the ``graph_beam_q`` op over its codes with the
+    per-query operands built once per search (on the card each is its CUDA
+    kernel; a plain version with the same signature may be passed as
+    ``hop`` to compare). Every step scores the same payload, so the beam's
+    order is consistent. Visited state is a ``[Q, N]`` uint8 stamp matrix
+    (0 unseen, 1 seen, 2 expanded), zeroed for each search.
 
     Rows that have converged keep looping with every slot masked, a
     bitwise no-op, so a row's answer does not depend on its batch-mates.
@@ -441,10 +542,21 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     n = vecs.shape[0]
     # a fixed sum order: a query's norm is the same alone and in a batch
     q_sq = pairwise_sum(q * q)
+    cdx = graph.codec
+    if cdx is None:
+        hop = graph_beam if hop is None else hop
 
-    def step(cand, bv, bi):
-        return hop(q, vecs, cand, bv, bi, db_sq=vecs_sq, q_sq=q_sq,
-                   db_mask=mask)
+        def step(cand, bv, bi):
+            return hop(q, vecs, cand, bv, bi, db_sq=vecs_sq, q_sq=q_sq,
+                       db_mask=mask)
+    else:
+        hop = graph_beam_q if hop is None else hop
+        codes, node_bias = cdx.device_arrays(dev)[:2]
+        q_op, q_bias = cdx.query_operands(q, q_sq)
+
+        def step(cand, bv, bi):
+            return hop(q_op, q_bias, codes, node_bias, cand, bv, bi,
+                       db_mask=mask, mode=cdx.kind, ksub=cdx.ksub)
 
     i32, u8 = torch.int32, torch.uint8
     rows = torch.arange(nq, device=dev)

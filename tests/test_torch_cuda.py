@@ -12,7 +12,10 @@ scores; on float inputs ids must be equal and values within 1e-4 of the
 largest magnitude (float32 sums in another order), except for the
 ``graph_beam`` hop, whose kernel sums in its plain version's order and
 must agree bit for bit on every input. The ``topk_merge`` kernel orders
-by the plain version's keys and must agree with it bit for bit too.
+by the plain version's keys and must agree with it bit for bit too, and
+the ``pq_adc`` and ``graph_beam_q`` kernels sum in their plain versions'
+trees (the LUT, the m looked-up entries, the SQ8 dot) and must agree bit
+for bit on every input.
 """
 import numpy as np
 import pytest
@@ -22,14 +25,18 @@ torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
 
 from repro_torch import api  # noqa: E402
-from repro_torch.kernels import graph_beam  # noqa: E402
+from repro_torch.kernels import graph_beam, graph_beam_q, pq_adc  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
 from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda  # noqa: E402
 from repro_torch.kernels.graph_beam.ref import graph_beam_ref  # noqa: E402
+from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda  # noqa: E402
+from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref  # noqa: E402
 from repro_torch.kernels import l2_topk  # noqa: E402
 from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import (l2_topk_ref,  # noqa: E402
                                              l2_topk_scan_ref, prepare)
+from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda  # noqa: E402
+from repro_torch.kernels.pq_adc.ref import pq_adc_ref  # noqa: E402
 from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda  # noqa: E402
 from repro_torch.kernels.rae_encode.ref import rae_encode_ref  # noqa: E402
 from repro_torch.kernels import topk_merge  # noqa: E402
@@ -328,3 +335,192 @@ def test_ivf_index_on_card_answers_like_the_cpu_index(tmp_path):
     two = api.IVFFlatIndex(n_cells=64).build(x)
     assert one.fingerprint() == two.fingerprint()
 
+
+
+def _pq_case(seed, q_n, n, m, ksub, dsub, integer):
+    """Queries, codebooks and uint8 codes on the card; integer values
+    make every sum exact."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        q, cb = _ints(seed, (q_n, m * dsub)), _ints(seed + 1,
+                                                     (m, ksub, dsub))
+    else:
+        q, cb = _normal(seed, (q_n, m * dsub)), _normal(seed + 1,
+                                                        (m, ksub, dsub))
+    codes = torch.from_numpy(rng.integers(0, ksub, (n, m)).astype(np.uint8))
+    return q.cuda(), cb.cuda(), codes.cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "int"])
+@pytest.mark.parametrize("q_n,n,m,ksub,dsub,k", [
+    (1, 1001, 8, 256, 8, 10), (257, 20011, 8, 256, 8, 320),
+    (33, 5003, 1, 16, 1, 40), (7, 300, 16, 16, 4, 299),
+    (5, 100, 8, 256, 2, 150), (3, 9000, 4, 64, 16, 4032),
+    (2, 70, 3, 5, 3, 64)])
+def test_pq_adc_kernel_matches_plain(q_n, n, m, ksub, dsub, k, integer):
+    q, cb, codes = _pq_case(q_n + n, q_n, n, m, ksub, dsub, integer)
+    v, i = pq_adc(q, cb, codes, k)
+    torch.cuda.synchronize()
+    k_eff = min(k, n)
+    vr, ir = pq_adc_ref(q, cb, codes, k_eff)
+    assert torch.equal(i[:, :k_eff], ir)
+    assert torch.equal(v[:, :k_eff].view(torch.int32), vr.view(torch.int32))
+    assert (i[:, k_eff:] == -1).all() and torch.isneginf(v[:, k_eff:]).all()
+
+
+@needs_card
+def test_pq_adc_kernel_limits_and_launch_counter():
+    q, cb, codes = _pq_case(0, 4, 5000, 8, 256, 2, False)
+    with pytest.raises(ValueError, match="k <= min"):
+        pq_adc_cuda(q, cb, codes, 4033)
+    with pytest.raises(ValueError, match="uint8"):
+        pq_adc_cuda(q, cb, codes.int(), 5)
+    with pytest.raises(ValueError, match="float32"):
+        pq_adc_cuda(q.double(), cb, codes, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        pq_adc_cuda(q, cb, codes.t().contiguous().t(), 5)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pq_adc_cuda(q.cpu(), cb, codes, 5)
+    with pytest.raises(ValueError, match="uint8"):
+        pq_adc(q, cb, codes.int(), 5)  # the op never falls back
+    pq_adc_cuda.launches = 0
+    pq_adc_cuda(q, cb, codes, 4032)
+    pq_adc(q, cb, codes, 10)
+    assert pq_adc_cuda.launches == 2
+
+
+def _beam_q_case(seed, mode, q_n, n, c, ksub, w, integer):
+    """Hop operands on the card: sq8 operand [Q, C], pq LUT [Q, C*ksub];
+    codes below 256 (sq8) or ksub (pq); about a third of the ids -1."""
+    rng = np.random.default_rng(seed)
+    hi = 256 if mode == "sq8" else ksub
+    codes = torch.from_numpy(rng.integers(0, hi, (n, c)).astype(np.uint8))
+    dop = c if mode == "sq8" else c * ksub
+    if integer:
+        q_op, q_bias = _ints(seed, (q_n, dop)), _ints(seed + 1, (q_n,))
+        node_bias = _ints(seed + 2, (n,), 0, 9)
+    else:
+        q_op = _normal(seed, (q_n, dop), 0.1)
+        q_bias = _normal(seed + 1, (q_n,))
+        node_bias = _normal(seed + 2, (n,)).abs()
+    ids = torch.from_numpy(rng.integers(-1, n, (q_n, w)).astype(np.int32))
+    return [t.cuda() for t in (q_op, q_bias, codes, node_bias, ids)]
+
+
+@needs_card
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "int"])
+@pytest.mark.parametrize("mode,q_n,n,c,ksub,w,ef,live", [
+    ("sq8", 7, 60, 16, 0, 9, 8, 2), ("sq8", 4, 25, 1, 0, 5, 4, 1),
+    ("sq8", 33, 5000, 64, 0, 64, 80, 40), ("sq8", 2, 900, 64, 0, 1024, 1, 1),
+    ("sq8", 3, 3000, 40, 0, 300, 4096, 100),
+    ("pq", 7, 60, 8, 256, 9, 8, 2), ("pq", 5, 30, 1, 16, 1, 6, 0),
+    ("pq", 33, 5000, 8, 256, 64, 80, 40), ("pq", 2, 900, 3, 64, 1024, 1, 1),
+    ("pq", 3, 3000, 16, 16, 300, 4096, 100)])
+def test_graph_beam_q_kernel_matches_plain(mode, q_n, n, c, ksub, w, ef,
+                                           live, integer):
+    q_op, q_bias, codes, node_bias, ids = _beam_q_case(
+        q_n + n + c, mode, q_n, n, c, ksub, w, integer)
+    bv, bi = _beam(q_n, ef, live, empty=-np.inf if live % 2 else NEG_INF)
+    bv, bi = bv.cuda(), bi.cuda()
+    mask = torch.from_numpy(np.random.default_rng(w).random(n) > 0.25)
+    mask[:live] = True
+    for db_mask in (None, mask.cuda()):
+        args = (q_op, q_bias, codes, node_bias, ids, bv, bi)
+        v, i = graph_beam_q(*args, db_mask=db_mask, mode=mode, ksub=ksub)
+        torch.cuda.synchronize()
+        vr, ir = graph_beam_q_ref(*args, db_mask=db_mask, mode=mode,
+                                  ksub=ksub)
+        assert torch.equal(i, ir)
+        assert torch.equal(v.view(torch.int32), vr.view(torch.int32))
+
+
+@needs_card
+def test_graph_beam_q_kernel_limits_and_launch_counter():
+    q_op, q_bias, codes, node_bias, _ = _beam_q_case(0, "pq", 2, 9, 8, 16,
+                                                     1, False)
+
+    def call(w, ef, **kw):
+        ids = torch.zeros((2, w), dtype=torch.int32, device="cuda")
+        bv = torch.full((2, ef), NEG_INF, device="cuda")
+        bi = torch.full((2, ef), -1, dtype=torch.int32, device="cuda")
+        args = dict(q_op=q_op, q_bias=q_bias, codes=codes,
+                    node_bias=node_bias, nbr_ids=ids, beam_v=bv, beam_i=bi)
+        args.update(kw)
+        return graph_beam_q_cuda(mode="pq", ksub=16, **args)
+
+    with pytest.raises(ValueError, match="W <= 1024"):
+        call(1025, 8)
+    with pytest.raises(ValueError, match="ef <= 4096"):
+        call(8, 4097)
+    with pytest.raises(ValueError, match="uint8"):
+        call(8, 8, codes=codes.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(8, 8, q_op=q_op.t().contiguous().t())
+    with pytest.raises(ValueError, match="m\\*ksub"):
+        call(8, 8, q_op=q_op[:, :64].contiguous())
+    with pytest.raises(ValueError, match="mode"):
+        graph_beam_q(q_op, q_bias, codes, node_bias,
+                     torch.zeros((2, 3), dtype=torch.int32, device="cuda"),
+                     torch.zeros((2, 4), device="cuda"),
+                     torch.zeros((2, 4), dtype=torch.int32, device="cuda"),
+                     mode="fp4")
+    graph_beam_q_cuda.launches = 0
+    call(1024, 4096)
+    call(1, 1)
+    assert graph_beam_q_cuda.launches == 2
+
+
+@needs_card
+@pytest.mark.parametrize("spec", ["SQ8", "PQ8x8", "IVF32,SQ8", "IVF32,PQ8x8"])
+def test_quantized_index_on_card_answers_like_the_cpu_index(spec, tmp_path):
+    """One quantized index (built on the CPU, loaded on both devices):
+    equal ids and bit-equal scores. Every dim spans 0..255, so the SQ8
+    step is 1 and its matmuls are exact on integer queries; the PQ LUT and
+    sums are elementwise trees. The flat PQ scan goes through the
+    kernel."""
+    corpus = _ints(10, (4001, 16), 0, 256).numpy()
+    corpus[0], corpus[1] = 0.0, 255.0
+    queries = _ints(11, (50, 16), 0, 256).numpy()
+    api.index_factory(spec, device="cpu").build(corpus).save(
+        str(tmp_path / "i"))
+    cpu = api.load_index(str(tmp_path / "i"), device="cpu")
+    gpu = api.load_index(str(tmp_path / "i"))
+    pq_adc_cuda.launches = 0
+    alive = np.random.default_rng(0).random(4001) > 0.1
+    for al in (None, alive):
+        a, b = gpu.search(queries, 30, alive=al), cpu.search(queries, 30,
+                                                            alive=al)
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.scores, b.scores)
+    assert pq_adc_cuda.launches == (2 if spec == "PQ8x8" else 0)
+    assert gpu.fingerprint() == cpu.fingerprint()
+
+
+@needs_card
+@pytest.mark.parametrize("quant", ["sq8", "pq"])
+def test_quantized_hnsw_on_card_answers_like_the_cpu_index(quant, tmp_path):
+    """A quantized graph built on the CPU, loaded on both devices: equal
+    ids and bit-equal scores (the hop's sums, the LUT and the SQ8 operands
+    are elementwise trees on both devices); every step one graph_beam_q
+    launch; a lone query answers as in its batch."""
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(8, 32)) * 4
+    corpus = (centers[rng.integers(0, 8, 3000)]
+              + rng.normal(size=(3000, 32))).astype(np.float32)
+    queries = corpus[rng.integers(0, 3000, 200)] + 0.01
+    api.HNSWIndex(m=8, ef_construction=40, quant=quant, pq_m=8,
+                  device="cpu").build(corpus).save(str(tmp_path / "g"))
+    cpu = api.load_index(str(tmp_path / "g"), device="cpu")
+    gpu = api.load_index(str(tmp_path / "g"))
+    graph_beam_q_cuda.launches = graph_beam_cuda.launches = 0
+    got = gpu.search(queries, 10)
+    assert graph_beam_q_cuda.launches >= got.stats["beam_hops"] + 1
+    assert graph_beam_cuda.launches == 0
+    want = cpu.search(queries, 10)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    assert got.stats == want.stats
+    solo = gpu.search(queries[3:4], 10)
+    np.testing.assert_array_equal(solo.indices[0], got.indices[3])
+    np.testing.assert_array_equal(solo.scores[0], got.scores[3])

@@ -440,18 +440,43 @@ def test_factory_builds_hnsw_stack_on_cpu(corpus, queries):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("HNSW32,SQ8", "item 9"), ("RAE64,HNSW32,PQ8x8,Rerank4", "item 9"),
     ("Mut,RAE64,HNSW32,Rerank4", "item 11"),
-    ("Shard2,HNSW32,SQ8", "item 9"), ("Mut,RAE64,IVF256,Rerank4", "item 11"),
+    ("Mut,RAE64,IVF256,Rerank4", "item 11"),
 ])
 def test_factory_names_the_roadmap_item_of_unported_stages(spec, item):
     with pytest.raises(NotImplementedError, match=item):
         api.index_factory(spec, device="cpu")
 
 
+def _storage(stack):
+    """The storage index under a two-stage stack, or a shard's child."""
+    base = getattr(stack, "base", stack)
+    return base._shards[0] if hasattr(base, "_shards") else base
+
+
+@pytest.mark.parametrize("spec", ["HNSW32,SQ8", "RAE64,HNSW32,PQ8x8,Rerank4",
+                                  "Shard2,HNSW32,SQ8"])
+def test_factory_builds_the_quantized_graph_stages_on_cpu(spec, corpus,
+                                                          queries):
+    """The quantized graph stages (once refused, ROADMAP.md A9) build the
+    reference's classes, with its codec knobs, on the CPU, and search."""
+    kw = dict(reducer_kw={"steps": 5}, index_kw={"ef_construction": 20})
+    port = api.index_factory(spec, device="cpu", **kw).build(corpus[:300])
+    want = jax_api.index_factory(spec, **kw)
+    want = getattr(want, "base", want)
+    if isinstance(want, jax_api.ShardedIndex):   # children come at build
+        want = jax_api.index_factory(want.child_spec,
+                                     index_kw=kw["index_kw"])
+    node = _storage(port)
+    assert type(node).__name__ == type(want).__name__ == "HNSWIndex"
+    assert (node.quant, node.pq_m, node.pq_bits, node.stage1_oversample) \
+        == (want.quant, want.pq_m, want.pq_bits, want.stage1_oversample)
+    res = port.search(queries, 10)
+    assert res.indices.shape == (24, 10) and (res.indices >= 0).all()
+    assert np.isfinite(res.scores).all()
+
+
 def test_unported_hnsw_options_name_their_items(corpus):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.HNSWIndex(quant="sq8", device="cpu")
     idx = api.HNSWIndex(m=4, ef_construction=20, device="cpu").build(
         corpus[:50])
     with pytest.raises(NotImplementedError, match="item 11"):

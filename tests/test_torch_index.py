@@ -211,13 +211,33 @@ def test_parse_rejects_what_the_reference_rejects(bad):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("IVF32,SQ8", "item 9"), ("RAE8,HNSW8,SQ8,Rerank2", "item 9"),
-    ("PCA8,Flat", "item 8"), ("Flat,SQ8", "item 9"),
-    ("Mut,Shard2,Flat", "item 11"), ("Mut,Flat", "item 11"),
+    ("PCA8,Flat", "item 8"), ("Mut,Shard2,Flat", "item 11"),
+    ("Mut,Flat", "item 11"),
 ])
 def test_factory_names_the_roadmap_item_of_unported_stages(spec, item):
     with pytest.raises(NotImplementedError, match=item):
         api.index_factory(spec, device="cpu")
+
+
+@pytest.mark.parametrize("spec,cls", [
+    ("IVF32,SQ8", "IVFSQ8Index"), ("RAE8,HNSW8,SQ8,Rerank2", "HNSWIndex"),
+    ("Flat,SQ8", "SQ8Index"),
+])
+def test_factory_builds_the_quantized_stages_on_cpu(spec, cls, corpus,
+                                                    queries):
+    """The quantized stages (once refused, ROADMAP.md A9) build the
+    reference's class on the CPU, and search."""
+    kw = dict(reducer_kw={"steps": 5}, index_kw={})
+    if "HNSW" in spec:
+        kw["index_kw"] = {"ef_construction": 20}
+    port = api.index_factory(spec, device="cpu", **kw)
+    ref = jax_api.index_factory(spec, **kw)
+    node, want = getattr(port, "base", port), getattr(ref, "base", ref)
+    assert type(node).__name__ == type(want).__name__ == cls
+    port.build(corpus[:500])
+    res = port.search(queries, 10)
+    assert res.indices.shape == (24, 10) and (res.indices >= 0).all()
+    assert node.bytes_per_vector > 0
 
 
 @pytest.mark.parametrize("spec", ["Flat", "RAE8,Flat,Rerank2"])

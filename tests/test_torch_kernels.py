@@ -24,11 +24,16 @@ torch.set_float32_matmul_precision("highest")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import graph_beam_q as jax_graph_beam_q  # noqa: E402
 from repro.kernels import l2_topk as jax_l2_topk  # noqa: E402
+from repro.kernels import pq_adc as jax_pq_adc  # noqa: E402
 from repro.kernels import rae_encode as jax_rae_encode  # noqa: E402
 from repro.kernels import topk_merge as jax_topk_merge  # noqa: E402
+from repro.kernels.graph_beam_q.ref import graph_beam_q_ref as jax_hop_q_ref  # noqa: E402
+from repro.kernels.pq_adc.ref import pq_adc_ref as jax_pq_ref  # noqa: E402
 from repro.kernels.topk_merge.ref import topk_merge_ref as jax_merge_ref  # noqa: E402
-from repro_torch.kernels import l2_topk, rae_encode, topk_merge  # noqa: E402
+from repro_torch.kernels import (graph_beam_q, l2_topk, pq_adc,  # noqa: E402
+                                 rae_encode, topk_merge)
 from repro_torch.kernels.common import NEG_INF, PAD_ID  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref  # noqa: E402
 
@@ -305,3 +310,165 @@ def test_topk_merge_live_ids_at_minus_inf_follow_the_reference_ref():
     assert np.isneginf(got[0].numpy()[[0, 1], [4, 4]]).all()
     _assert_merge_bits(got, jax_merge_ref(jnp.asarray(vals),
                                           jnp.asarray(ids), 5))
+
+
+# ---------------------------------------------------------------------------
+# pq_adc
+# ---------------------------------------------------------------------------
+# (q, n, m, ksub, dsub, k, bq, bn): the reference's parity cases (ragged N,
+# k > N, dsub = 1) and its sweep, the Pallas kernel in interpret mode with
+# small tiles
+PQ_CASES = {"ragged_n": (17, 337, 4, 16, 4, 5, 32, 128),
+            "k_gt_n": (4, 6, 2, 4, 2, 10, 8, 8),
+            "d1": (8, 64, 1, 8, 1, 3, 8, 32),
+            "sweep": (16, 200, 4, 16, 8, 5, 32, 128),
+            "pq8x8": (8, 300, 8, 256, 2, 40, 8, 128)}
+
+
+def _pq_inputs(q_n, n, m, ksub, dsub, integer):
+    rng = np.random.default_rng(q_n + n)
+    if integer:
+        qs = rng.integers(-3, 4, (q_n, m * dsub)).astype(np.float32)
+        cb = rng.integers(-3, 4, (m, ksub, dsub)).astype(np.float32)
+    else:
+        qs = rng.normal(size=(q_n, m * dsub)).astype(np.float32)
+        cb = rng.normal(size=(m, ksub, dsub)).astype(np.float32)
+    codes = rng.integers(0, ksub, (n, m)).astype(np.uint8)
+    return qs, cb, codes
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "int"])
+@pytest.mark.parametrize("name", list(PQ_CASES))
+def test_pq_adc_matches_pallas_and_reference_ref(name, integer):
+    q_n, n, m, ksub, dsub, k, bq, bn = PQ_CASES[name]
+    qs, cb, codes = _pq_inputs(q_n, n, m, ksub, dsub, integer)
+    v, i = pq_adc(*(torch.from_numpy(a) for a in (qs, cb, codes)), k)
+    assert v.dtype == torch.float32 and i.dtype == torch.int32
+    assert v.shape == i.shape == (q_n, k)
+    k_eff = min(k, n)
+    # k > N: the tail pads with (-inf, -1), as the reference's op
+    assert np.isneginf(v.numpy()[:, k_eff:]).all()
+    assert (i.numpy()[:, k_eff:] == -1).all()
+    want = jax_pq_adc(jnp.asarray(qs), jnp.asarray(cb),
+                      jnp.asarray(codes.astype(np.int32)), k,
+                      impl="pallas", bq=bq, bn=bn, interpret=True)
+    ref = jax_pq_ref(jnp.asarray(qs), jnp.asarray(cb), jnp.asarray(codes),
+                     k_eff)
+    for wv, wi in ((want[0][:, :k_eff], want[1][:, :k_eff]), ref):
+        np.testing.assert_array_equal(i.numpy()[:, :k_eff], np.asarray(wi))
+        if integer:
+            np.testing.assert_array_equal(v.numpy()[:, :k_eff],
+                                          np.asarray(wv))
+        else:
+            np.testing.assert_allclose(v.numpy()[:, :k_eff], np.asarray(wv),
+                                       rtol=RTOL, atol=ATOL)
+
+
+def test_pq_adc_ties_go_to_the_lower_row_and_chunks_agree(monkeypatch):
+    """Duplicate code rows tie exactly: the lower row comes first, as in
+    ``lax.top_k``; scanning the rows in chunks changes nothing."""
+    import importlib
+
+    qs, cb, codes = _pq_inputs(6, 150, 4, 8, 2, True)
+    codes[100:] = codes[:50]
+    t = [torch.from_numpy(a) for a in (qs, cb, codes)]
+    v, i = pq_adc(*t, 60)
+    vr, ir = jax_pq_ref(*(jnp.asarray(a) for a in (qs, cb, codes)), 60)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ir))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(vr))
+    vv, ii = v.numpy(), i.numpy()
+    ties = vv[:, 1:] == vv[:, :-1]
+    assert ties.any() and np.all(ii[:, 1:][ties] > ii[:, :-1][ties])
+    ref_mod = importlib.import_module("repro_torch.kernels.pq_adc.ref")
+    monkeypatch.setattr(ref_mod, "CHUNK_BYTES", 8 * 4 * 6 * 17)
+    vc, ic = pq_adc(*t, 60)
+    assert torch.equal(vc, v) and torch.equal(ic, i)
+
+
+def test_pq_adc_rejects_a_query_width_off_the_codebooks():
+    qs, cb, codes = _pq_inputs(2, 10, 2, 4, 3, False)
+    with pytest.raises(ValueError, match="m\\*dsub"):
+        pq_adc(torch.from_numpy(qs[:, :5]), torch.from_numpy(cb),
+               torch.from_numpy(codes), 3)
+
+
+# ---------------------------------------------------------------------------
+# graph_beam_q
+# ---------------------------------------------------------------------------
+# (mode, q_n, n, c, ksub, w, ef): the reference's parity cases (ragged Q,
+# W = 1, ef > W, d = 1, tiny ksub with m = 1); the interpret-mode grid is
+# (Q, W), so the cases stay small
+BEAM_Q_CASES = {"sq8_ragged_q": ("sq8", 7, 60, 16, 0, 9, 8),
+                "sq8_w1": ("sq8", 5, 30, 8, 0, 1, 6),
+                "sq8_ef_gt_w": ("sq8", 3, 20, 4, 0, 3, 15),
+                "sq8_d1": ("sq8", 4, 25, 1, 0, 5, 4),
+                "pq_ragged_q": ("pq", 7, 60, 8, 16, 9, 8),
+                "pq_ef_gt_w": ("pq", 3, 20, 4, 256, 3, 15),
+                "pq_m1_tiny_ksub": ("pq", 5, 9, 1, 7, 4, 6)}
+
+
+def _beam_q_inputs(seed, mode, q_n, n, c, ksub, w, ef, integer):
+    """Random hop inputs, as the reference's ``_beam_q_case`` draws them
+    (integer-valued operands and biases when ``integer``)."""
+    rng = np.random.default_rng(seed)
+    hi = 256 if mode == "sq8" else ksub
+    codes = rng.integers(0, hi, (n, c)).astype(np.uint8)
+    dop = c if mode == "sq8" else c * ksub
+    if integer:
+        q_op = rng.integers(-3, 4, (q_n, dop)).astype(np.float32)
+        q_bias = rng.integers(-3, 4, q_n).astype(np.float32)
+        node_bias = rng.integers(0, 9, n).astype(np.float32)
+    else:
+        q_op = (0.1 * rng.standard_normal((q_n, dop))).astype(np.float32)
+        q_bias = rng.standard_normal(q_n).astype(np.float32)
+        node_bias = np.abs(rng.standard_normal(n)).astype(np.float32)
+    ids = rng.integers(-1, n, (q_n, w)).astype(np.int32)
+    bv = np.full((q_n, ef), NEG_INF, np.float32)
+    bi = np.full((q_n, ef), -1, np.int32)
+    for s in range(min(2, ef)):
+        bv[:, s] = -0.25 * (s + 1) - (10_000 if integer else 0)
+        bi[:, s] = s
+    return q_op, q_bias, codes, node_bias, ids, bv, bi
+
+
+@pytest.mark.parametrize("integer", [False, True], ids=["float", "int"])
+@pytest.mark.parametrize("name", list(BEAM_Q_CASES))
+def test_graph_beam_q_matches_pallas_and_reference_ref(name, integer):
+    mode, q_n, n, c, ksub, w, ef = BEAM_Q_CASES[name]
+    a = _beam_q_inputs(q_n * 7 + n + c, mode, q_n, n, c, ksub, w, ef,
+                       integer)
+    kw = {"mode": mode, "ksub": ksub if mode == "pq" else 0}
+    mask = np.random.default_rng(n).random(n) > 0.3
+    for db_mask in (None, mask):
+        v, i = graph_beam_q(*(torch.from_numpy(x) for x in a),
+                            db_mask=None if db_mask is None
+                            else torch.from_numpy(db_mask), **kw)
+        assert v.dtype == torch.float32 and i.dtype == torch.int32
+        want = [jax_hop_q_ref(*a, db_mask=db_mask, **kw)]
+        if db_mask is None:
+            want.append(jax_graph_beam_q(*(jnp.asarray(x) for x in a),
+                                         impl="pallas", interpret=True,
+                                         **kw))
+        for wv, wi in want:
+            np.testing.assert_array_equal(i.numpy(), np.asarray(wi))
+            if integer:
+                np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+            else:
+                np.testing.assert_allclose(v.numpy(), np.asarray(wv),
+                                           rtol=RTOL, atol=ATOL)
+        if db_mask is not None:
+            live = i.numpy()[i.numpy() >= 2]   # beam entries 0, 1 stay
+            assert db_mask[live].all()
+
+
+def test_graph_beam_q_rejects_bad_mode_ksub_and_operand():
+    a = [torch.from_numpy(x) for x in _beam_q_inputs(0, "sq8", 2, 10, 4, 0,
+                                                     3, 4, False)]
+    with pytest.raises(ValueError, match="mode"):
+        graph_beam_q(*a, mode="fp4")
+    with pytest.raises(ValueError, match="ksub"):
+        graph_beam_q(*a, mode="pq", ksub=0)
+    with pytest.raises(ValueError, match="m\\*ksub"):
+        graph_beam_q(*a, mode="pq", ksub=3)
+    with pytest.raises(ValueError, match="sq8 operand dim"):
+        graph_beam_q(a[0][:, :3], *a[1:], mode="sq8")
