@@ -17,6 +17,10 @@ Rerank4``: fit, encode, train 8 subspace codebooks, store 8-byte codes,
 scan them with the hand-written ``pq_adc`` kernel, rerank.
 ``RAE64,HNSW32,SQ8,Rerank4`` / ``RAE64,HNSW32,PQ8x8,Rerank4``: the graph
 with a code payload, every hop one hand-written ``graph_beam_q`` launch.
+Two model serving paths feed such an index its embeddings:
+two-tower-retrieval (the user tower's history bag through the hand-written
+``embedding_bag`` kernel) and llama3.2-1b (prefill, and decode steps whose
+attention is the hand-written ``flash_decode`` kernel over the KV cache).
 Phases:
 
 1. kernels against their plain PyTorch versions on the card;
@@ -53,11 +57,23 @@ Phases:
    the graph gates of ``scripts/check_bench.py`` against phase 4's f32
    stack (gather bytes per hop at least 3x / 4x fewer, recall within
    0.01), kernel-hop traversal == plain-hop traversal, a lone query == its
-   batch row; and both kernels' times at the main path's shapes.
+   batch row; and both kernels' times at the main path's shapes;
+7. two-tower-retrieval at its published widths (no cut: 25.6 GB of float32
+   tables on the card): the serve_p99 (B=512), serve_bulk (B=262,144,
+   history bags of 50) and retrieval_cand (one user against 1,000,000
+   candidates, top-100) cells through ``models.registry.build_cell``:
+   latency, the kernel path against the plain path (bit-equal), peak
+   memory, the card's idle share; and the bag kernel's time at serve_bulk;
+8. llama3.2-1b at its published widths in bfloat16: prefill cut to 8 x 2048
+   tokens and 8 decode steps from its cache, held to the forward over the
+   same tokens (relative error < 0.06) and to the plain path; decode_32k
+   cut to B=32 and long_500k (B=1, 524,288 positions), 8 steps each from a
+   seeded cache: step time, tokens per second, the idle share of a step;
+   and the decode kernel's time at both cells' shapes.
 
-Every launch counter is set to 0 just before phases 3, 4, 5 and 6 drive
-their paths and read just after; a kernel of the path that did not launch
-fails the run. The last lines are a ``kernels`` JSON object, the card's
+Every launch counter is set to 0 just before phases 3 to 8 drive their
+paths and read just after; a kernel of the path that did not launch fails
+the run. The last lines are a ``kernels`` JSON object, the card's
 name and power limit, and ``{"ok": true, "device": ...}``. A phase that
 fails is reported and the next one runs; if any failed, the script prints
 no result and exits with code 1. Without a CUDA card it exits with code 2
@@ -65,7 +81,9 @@ before any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import itertools
 import json
 import os
@@ -88,6 +106,10 @@ PEAK_BYTES = 3.35e12
 # kernel vs plain: float32 sums in another order; ids must be equal
 ENCODE_TOL = 1e-4   # |kernel - plain| <= ENCODE_TOL * max(1, max |plain|)
 SCORE_TOL = 1e-4    # same rule for the scan's scores
+# |kernel - plain| <= FLASH_REL * max |plain|, with no floor: decode outputs
+# average V over up to 524,288 positions and are about 5e-3 there, and one
+# position dropped or added moves them by about 1e-3 of that
+FLASH_REL = 1e-5
 
 
 def check(cond: bool, what: str) -> None:
@@ -209,6 +231,14 @@ def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / scale
 
 
+def rel_to_max(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """max |got - want| and that over max |want| (over 1 where want is all
+    zeros, where got must be zeros too)."""
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    top = float(want.abs().max()) if want.numel() else 0.0
+    return err, err / top if top > 0 else err
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: each kernel against its plain version, on the card
 # ---------------------------------------------------------------------------
@@ -258,7 +288,86 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
     errs["topk_merge"] = phase_kernels_topk_merge(g)
     errs["pq_adc"] = phase_kernels_pq_adc(g)
     errs["graph_beam_q"] = phase_kernels_graph_beam_q(g)
+    errs["embedding_bag"] = phase_kernels_embedding_bag(g)
+    errs["flash_decode"] = phase_kernels_flash_decode(g)
     return errs
+
+
+def phase_kernels_embedding_bag(g: torch.Generator) -> float:
+    """The EmbeddingBag kernel against its plain version, float32 and
+    bfloat16 tables, mean and sum: the reference's ragged cases
+    (odd_shapes, d1), the two-tower's width (d=256, L=50) over a 1M-row
+    table, and bags of length 0, past L and with ids outside [0, V).
+    Both add a bag's rows in the same slot order: bit-equal."""
+    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    worst, cases = 0.0, 0
+    for v, d, b, l in [(13, 5, 7, 3), (10, 1, 4, 5), (1_000_000, 256, 4096,
+                                                      50)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn(v, d, device="cuda", generator=g).to(dtype)
+            ids = torch.randint(-3, v + 3, (b, l), device="cuda",
+                                generator=g, dtype=torch.int32)
+            lens = torch.randint(1, l + 1, (b,), device="cuda", generator=g,
+                                 dtype=torch.int32)
+            lens[0], lens[-1] = 0, l + 7      # an empty bag, one past L
+            for mode in ("mean", "sum"):
+                got = embedding_bag(table, ids, lens, mode)
+                sync()
+                want = embedding_bag_ref(table, ids, lens, mode)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                cases += 1
+                check(torch.equal(got, want),
+                      f"embedding_bag V={v} d={d} B={b} L={l} {dtype} "
+                      f"{mode}: kernel != plain (max_abs_err {err})")
+    log(f"phase 1: embedding_bag {cases} cases ((V, d, B, L) in (13, 5, 7, "
+        f"3), (10, 1, 4, 5), (1M, 256, 4096, 50); float32 and bfloat16; "
+        f"mean and sum; lengths 0 and > L, ids outside [0, V)): bit-equal "
+        f"to the plain version, max_abs_err {worst:.3e}")
+    return worst
+
+
+def phase_kernels_flash_decode(g: torch.Generator) -> float:
+    """The decode-attention kernel against its plain version, float32 and
+    bfloat16 caches: the reference's ragged cases (ragged_s, cur1, dh1) and
+    llama3.2-1b's heads (kh=8, g=4, dh=64) at cur_len 0, 1, ragged and S,
+    past S, and over 70,001 positions (many splits). Float32 softmax sums
+    in another order: within ``FLASH_REL`` of the largest magnitude."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    shapes = [(2, 2, 2, 8, 50, (37,)), (1, 1, 4, 8, 64, (1,)),
+              (2, 1, 2, 1, 33, (20,)),
+              (2, 8, 4, 64, 4096, (0, 1, 3001, 4096, 5000)),
+              (1, 8, 4, 64, 70_001, (69_990,)), (1, 2, 3, 128, 300, (299,))]
+    worst, worst_rel, cases = 0.0, 0.0, 0
+    for b, kh, gq, dh, s, curs in shapes:
+        q = torch.randn(b, kh, gq, dh, device="cuda", generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            k = torch.randn(b, s, kh, dh, device="cuda", generator=g).to(dtype)
+            v = torch.randn(b, s, kh, dh, device="cuda", generator=g).to(dtype)
+            for cur in curs:
+                cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+                got = flash_decode(q, k, v, cl)
+                sync()
+                want = flash_decode_ref(q, k, v, cl)
+                err, rel = rel_to_max(got, want)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                cases += 1
+                check(rel <= FLASH_REL, f"flash_decode B={b} kh={kh} g={gq} "
+                                        f"dh={dh} S={s} cur={cur} {dtype}: "
+                                        f"err {err}")
+                if cur == 0:
+                    check(bool((got == 0).all()), "flash_decode at cur_len "
+                                                  "0 is not zeros")
+    log(f"phase 1: flash_decode {cases} cases (the reference's ragged_s, "
+        f"cur1, dh1; llama3.2-1b heads at cur_len 0, 1, 3001, S, > S over "
+        f"S=4096 and 69,990 of 70,001; dh=128; float32 and bfloat16 "
+        f"caches): max_abs_err {worst:.3e}, over max |plain| {worst_rel:.3e}"
+        f" (bar {FLASH_REL})")
+    return worst
 
 
 def phase_kernels_pq_adc(g: torch.Generator) -> float:
@@ -1711,6 +1820,438 @@ def graph_beam_q_time(launches: int, g: torch.Generator) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the model serving paths that feed the index
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_kernels():
+    """The model paths with ``embedding_bag`` and ``flash_decode`` replaced
+    by their plain versions (the comparison runs, never the main path)."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models import common
+    from repro_torch.models.transformer import attention
+
+    saved = common.embedding_bag_op, attention.flash_decode
+    common.embedding_bag_op = embedding_bag_ref
+    attention.flash_decode = flash_decode_ref
+    try:
+        yield
+    finally:
+        common.embedding_bag_op, attention.flash_decode = saved
+
+
+@contextlib.contextmanager
+def recorded_decode_inputs():
+    """Keeps the arguments of every ``flash_decode`` call the decode path
+    makes (whichever version it calls), to hold the kernel against its
+    plain version on each layer's own inputs."""
+    from repro_torch.models.transformer import attention
+
+    seen, saved = [], attention.flash_decode
+
+    def record(q, k, v, cur_len):
+        seen.append((q, k, v, cur_len))
+        return saved(q, k, v, cur_len)
+
+    attention.flash_decode = record
+    try:
+        yield seen
+    finally:
+        attention.flash_decode = saved
+
+
+def no_host_sync(fn):
+    """``fn()`` under PyTorch's CUDA sync debug mode "error": any call in
+    it that makes the host wait for the card (a blocking copy, ``.item()``,
+    a stream synchronize) raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spread(lat: list[float]) -> str:
+    ms = np.asarray(lat) * 1e3
+    return (f"median {float(np.median(ms)):.3f} ms, min {ms.min():.3f}, max "
+            f"{ms.max():.3f} over {len(ms)}")
+
+
+TWO_TOWER = "two-tower-retrieval"
+TWO_TOWER_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+
+
+def phase_two_tower(device: str, reps: int = 10) -> dict:
+    """two-tower-retrieval at its published widths (no cut): the tables in
+    float32 padded to 512 rows (25.6 GB), MLP 1024-512-256 in bfloat16, the
+    reference's serve_p99 (B=512), serve_bulk (B=262,144, history bags of
+    50 ids, lengths uniform in 1..50) and retrieval_cand (one user against
+    1,000,000 candidates, top-100) cells, each through ``build_cell``'s
+    step function ``reps`` times with the ``embedding_bag`` counter from 0;
+    the kernel path against the plain path; latency, peak memory above the
+    weights and the card's idle share."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.models.registry import build_cell
+
+    free_card()
+    cells = {name: build_cell(TWO_TOWER, name, device)
+             for name in TWO_TOWER_CELLS}
+    cfg = cells["serve_p99"].cfg
+    t0 = time.perf_counter()
+    params = cells["serve_p99"].init(0)
+    sync()
+    t_init = time.perf_counter() - t0
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"phase 7: {TWO_TOWER}: tables "
+        + ", ".join(f"{t.name} {params['table_' + t.name].shape[0]}x{t.dim}"
+                    for t in cfg.tables)
+        + f" float32, MLP {cfg.mlp_dims} in {cfg.compute_dtype}: "
+          f"{nbytes / 1e9:.3f} GB of weights drawn on the card in "
+          f"{t_init:.2f} s (no cut)")
+    base_mem = torch.cuda.memory_allocated()
+    out = {"params": params, "launches": 0}
+    for name, cell in cells.items():
+        (batch,) = cell.make_inputs(0)
+        b = cell.cell.global_batch
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with the kernel's counter from 0
+        embedding_bag_cuda.launches = 0
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = cell.fn(params, batch)
+            sync()
+            lat.append(time.perf_counter() - t0)
+        launches = embedding_bag_cuda.launches
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        out["launches"] += launches
+        check(launches == reps, f"{name}: embedding_bag launched {launches} "
+                                f"times in {reps} steps")
+        with plain_kernels():
+            plain = cell.fn(params, batch)
+        u = tt.user_tower(params, batch, cfg)
+        with plain_kernels():
+            u_plain = tt.user_tower(params, batch, cfg)
+        u_err = float((u - u_plain).abs().max())
+        norm_err = float((torch.linalg.vector_norm(u, dim=-1) - 1).abs().max())
+        if cell.cell.kind == "serve":
+            check(res.shape == (b,) and bool(torch.isfinite(res).all())
+                  and float(res.abs().max()) <= 1.0 + 1e-5,
+                  f"{name}: scores of shape [{b}], finite, in [-1, 1]")
+            same = bool(torch.equal(res, plain))
+            what = f"scores [{b}]"
+        else:
+            vals, ids = res
+            n_cand = cell.cell.n_candidates
+            scores = tt.retrieval_scores(params, batch, cfg)
+            top = torch.topk(scores, 100).values
+            check(vals.shape == (100,) and ids.dtype == torch.int32
+                  and bool((ids >= 0).all()) and bool((ids < n_cand).all())
+                  and bool((vals[:-1] >= vals[1:]).all())
+                  and torch.equal(vals, top)
+                  and torch.equal(scores[ids.long()], vals),
+                  f"{name}: top-100 of {n_cand} candidates: ids in range, "
+                  f"values sorted, equal to torch.topk's")
+            same = bool(torch.equal(ids, plain[1])
+                        and torch.equal(vals, plain[0]))
+            what = "top-100 ids and values"
+        check(norm_err < 1e-5, f"{name}: user tower rows not unit")
+        log(f"phase 7: {name} B={b}"
+            + (f" x {cell.cell.n_candidates} candidates"
+               if cell.cell.kind == "retrieval" else "")
+            + f": latency {spread(lat)} (first call included); "
+              f"embedding_bag launches {launches}; kernel path == plain path: "
+              f"{what} {same}, user tower max |diff| {u_err:.3e}; peak "
+              f"memory above the weights {peak:.3f} GB")
+        check(same and u_err == 0.0, f"{name}: the kernel path differs from "
+                                     f"the plain path")
+        no_host_sync(lambda: cell.fn(params, batch))
+        dev, held = device_ms(lambda: cell.fn(params, batch), reps=5)
+        med = float(np.median(lat[1:])) * 1e3
+        wall, busy, kern = device_busy_share(lambda: cell.fn(params, batch),
+                                             "embedding_bag")
+        log(f"phase 7: {name}: a step makes no host sync (sync debug mode "
+            f"\"error\"); the card's time a step {dev:.3f} ms (CUDA events, "
+            f"card held busy while enqueuing: {held}) of a {med:.3f} ms "
+            f"step: idle {1 - dev / med:.3f}; one step under torch.profiler:"
+            f" wall {wall:.3f} ms, card busy {busy:.3f} (idle "
+            f"{1 - busy:.3f}), embedding_bag {kern:.3f} ms of it")
+        if name == "serve_bulk":
+            out["bulk_batch"] = batch
+    return out
+
+
+def embedding_bag_time(tt_out: dict) -> dict:
+    """The bag kernel at serve_bulk's shape (B=262,144 bags of L=50 ids,
+    lengths uniform in 1..50, the hist_item table of 10,000,384 x 256
+    float32): its time beside its bound (the rows this batch's lengths
+    read), its plain version's and ``F.embedding_bag``'s over the same live
+    ids with offsets."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    table = tt_out["params"]["table_hist_item"]
+    batch = tt_out["bulk_batch"]
+    ids, lens = batch["hist"], batch["hist_len"]
+    b, l = ids.shape
+    v, d = table.shape
+    live = torch.arange(l, device=ids.device)[None, :] < lens[:, None]
+    flat = ids.clamp(0, v - 1)[live].long()
+    offsets = (torch.cumsum(lens.long(), 0) - lens.long())
+
+    def library():
+        return F.embedding_bag(flat, table, offsets, mode="mean")
+
+    got = embedding_bag_cuda(table, ids, lens, "mean")
+    lib_err, lib_rel = max_rel_err(library(), got)
+    check(lib_rel <= 1e-5, f"F.embedding_bag computes another function "
+                           f"(err {lib_err})")
+    ms, held_k = device_ms(lambda: embedding_bag_cuda(table, ids, lens,
+                                                      "mean"), reps=20)
+    plain, held_p = device_ms(lambda: embedding_bag_ref(table, ids, lens,
+                                                        "mean"), reps=3)
+    lib, held_l = device_ms(library, reps=20)
+    rows = int(lens.clamp(0, l).sum())
+    b_ms, b_by = bound(4.0 * rows * d + 4.0 * rows + 4.0 * b + 4.0 * b * d,
+                       float(rows * d + b * d))
+    log(f"phase 7: embedding_bag B={b} L={l} d={d} over {v} rows, {rows} "
+        f"live slots (device time, card held busy while enqueuing: "
+        f"{held_k}, {held_p}, {held_l}): kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, F.embedding_bag {lib:.4f} ms (|diff| {lib_err:.2e}"
+        f"), bound {b_ms:.4f} ms ({b_by}; {rows} rows of {4 * d} bytes)")
+    return {"name": "embedding_bag", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:44",
+            "launches": tt_out["launches"], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+LLAMA = "llama3.2-1b"
+DECODE_STEPS = 8
+#: the reference's decode-vs-forward bar (tests/test_transformer.py:60)
+DECODE_REL = 0.06
+#: kernel path vs plain path: decode logits, relative to the largest. The
+#: two attention outputs differ by float32 rounding (each layer's is held
+#: to FLASH_REL); cast to bfloat16 a few of them round the other way, and 16
+#: layers and the head carry that to 1.01e-2 of the largest logit (PR 16's
+#: chip runs 2 and 3, on the H100)
+KERNEL_PATH_REL = 2e-2
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_llama(device: str) -> dict:
+    """llama3.2-1b at its published widths in bfloat16 (serving weights):
+    the prefill cell cut from 32 x 32,768 to 8 x 2048 tokens (plain
+    PyTorch attention) with its cache padded to 2048 + 8 positions and 8
+    decode steps from it, the decode logits held to the prefill forward's
+    over the same tokens and to the plain path's; decode_32k cut from B=128
+    (137 GB of cache) to B=32 and long_500k (B=1, 524,288 positions, no
+    cut), each from a seeded cache at S - 16, 8 greedy steps, the
+    ``flash_decode`` counter from 0 (16 launches a step), step time, tokens
+    per second and the idle share of one step."""
+    from repro_torch.configs import get_shapes
+    from repro_torch.data import token_batch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.models.registry import build_cell
+    from repro_torch.models.transformer import model as tm
+
+    free_card()
+    shapes = {c.name: c for c in get_shapes(LLAMA)}
+    b, s = 8, 2048
+    pre = build_cell(LLAMA, shapes["prefill_32k"].replace(
+        seq_len=s, global_batch=b), device)
+    cfg = pre.cfg
+    t0 = time.perf_counter()
+    params = pre.init(0)
+    sync()
+    t_init = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 list(params["layers"].values())
+                 + [params["embed"], params["final_ln"]])
+    log(f"phase 8: {LLAMA}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, dh {cfg.d_head}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} (tied): {nbytes / 1e9:.3f} GB of "
+        f"{cfg.param_dtype} weights drawn on the card in {t_init:.2f} s")
+    out: dict = {"launches": 0}
+    toks = torch.as_tensor(token_batch(b, s + DECODE_STEPS, cfg.vocab_size,
+                                       seed=0)["tokens"], device=device)
+    flash_decode_cuda.launches = 0
+    lat = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        logits, embed, state = pre.fn(params, toks[:, :s],
+                                      max_len=s + DECODE_STEPS)
+        sync()
+        lat.append(time.perf_counter() - t0)
+    check(logits.shape == (b, tm.padded_vocab(cfg))
+          and bool(torch.isfinite(logits).all())
+          and float((torch.linalg.vector_norm(embed, dim=-1) - 1).abs().max())
+          < 1e-5, "prefill: logits finite, embeddings unit rows")
+    pre_ms = float(np.median(lat[1:])) * 1e3
+    start = tm.DecodeState(k=state.k.clone(), v=state.v.clone(),
+                           length=state.length.clone())
+    step_lat, dec_logits = [], []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, _, state = tm.decode_step(params, state, toks[:, s + i], cfg)
+        sync()
+        step_lat.append(time.perf_counter() - t0)
+        dec_logits.append(lg)
+    launches = flash_decode_cuda.launches
+    out["launches"] += launches
+    check(launches == DECODE_STEPS * cfg.n_layers,
+          f"prefill cell: flash_decode launched {launches} times in "
+          f"{DECODE_STEPS} steps of {cfg.n_layers} layers")
+    check(int(state.length) == s + DECODE_STEPS, "decode length")
+    hidden, _ = tm.forward_hidden(params, toks, cfg)
+    w = tm._head_matrix(params, cfg, torch.bfloat16)
+    fwd_err = [rel_err(dec_logits[i], (hidden[:, s + i] @ w).float())
+               for i in range(DECODE_STEPS)]
+    with plain_kernels(), recorded_decode_inputs() as seen:
+        plain_lg, _, _ = tm.decode_step(params, start, toks[:, s], cfg)
+    path_err = rel_err(dec_logits[0], plain_lg)
+    layer_rel = []
+    for q, k, v, cl in seen:     # each layer's own inputs, kernel vs plain
+        layer_rel.append(rel_to_max(flash_decode(q, k, v, cl),
+                                    flash_decode_ref(q, k, v, cl))[1])
+    del seen, hidden, start
+    log(f"phase 8: prefill B={b} S={s} (cut from 32 x 32768): "
+        f"{spread(lat[1:])} ({b * s / pre_ms * 1e3:.0f} tokens/s; first "
+        f"call {lat[0] * 1e3:.1f} ms); then {DECODE_STEPS} decode steps from "
+        f"its cache: {spread(step_lat)} a step ({b / np.median(step_lat):.0f}"
+        f" tokens/s), flash_decode launches {launches}; decode logits vs "
+        f"the forward over the same tokens, max rel err "
+        f"{max(fwd_err):.4f} (bar {DECODE_REL}); kernel path vs plain path "
+        f"{path_err:.2e} (bar {KERNEL_PATH_REL}); flash_decode vs its plain "
+        f"version on each of the {len(layer_rel)} layers' own inputs of that"
+        f" step, over max |plain|: at most {max(layer_rel):.3e} (bar "
+        f"{FLASH_REL})")
+    check(max(fwd_err) < DECODE_REL, f"decode != forward: {fwd_err}")
+    check(path_err < KERNEL_PATH_REL, f"decode kernel path != plain path: "
+                                      f"{path_err}")
+    check(len(layer_rel) == cfg.n_layers and max(layer_rel) <= FLASH_REL,
+          f"decode layers: flash_decode != plain on the path's inputs: "
+          f"{layer_rel}")
+    del state, logits, embed, dec_logits
+    free_card()
+
+    for name, batch in (("decode_32k", 32), ("long_500k", 1)):
+        cell_shape = shapes[name].replace(global_batch=batch)
+        cell = build_cell(LLAMA, cell_shape, device)
+        t0 = time.perf_counter()
+        state, tok = cell.make_inputs(0)
+        sync()
+        t_cache = time.perf_counter() - t0
+        sq = cell.cell.seq_len
+        cache_gb = 2 * state.k.numel() * state.k.element_size() / 1e9
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        flash_decode_cuda.launches = 0
+        step_lat = []
+        for _ in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, emb, state = cell.fn(params, state, tok)
+            tok = lg[:, :cfg.vocab_size].argmax(-1)
+            sync()
+            step_lat.append(time.perf_counter() - t0)
+        launches = flash_decode_cuda.launches
+        out["launches"] += launches
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        check(launches == DECODE_STEPS * cfg.n_layers,
+              f"{name}: flash_decode launched {launches} times")
+        check(int(state.length) == sq - 16 + DECODE_STEPS
+              and bool(torch.isfinite(lg).all()),
+              f"{name}: length and finite logits")
+        no_host_sync(lambda: cell.fn(params, state, tok))
+        dev, held = device_ms(lambda: cell.fn(params, state, tok), reps=4)
+        wall, busy, kern = device_busy_share(
+            lambda: cell.fn(params, state, tok), "flash_decode")
+        med = float(np.median(step_lat[1:]))
+        log(f"phase 8: {name} B={batch}"
+            + (" (cut from 128)" if batch != shapes[name].global_batch
+               else "")
+            + f" S={sq}: seeded cache of {cache_gb:.2f} GB at length "
+              f"{sq - 16} made in {t_cache:.2f} s; {DECODE_STEPS} greedy "
+              f"steps: {spread(step_lat)} ({batch / med:.1f} tokens/s from "
+              f"the median after the first), flash_decode launches "
+              f"{launches}, peak memory above weights and cache {peak:.3f} "
+              f"GB; a step makes no host sync (sync debug mode \"error\"); "
+              f"the card's time a step {dev:.3f} ms (CUDA events, card held "
+              f"busy while enqueuing: {held}): idle {1 - dev / med / 1e3:.3f}"
+              f" of the median step; "
+              f"one step under torch.profiler: wall {wall:.3f} ms, card "
+              f"busy {busy:.3f} (idle {1 - busy:.3f}), flash_decode "
+              f"{kern:.3f} ms of it")
+        out[name] = flash_decode_time(state, cfg, name)
+        del state, lg, emb, tok
+        free_card()
+    return out
+
+
+def flash_decode_time(state, cfg, name: str) -> dict:
+    """The decode-attention kernel at the cell's shape, on layer 0's cache
+    at the state's length: its time beside its bound (the live K and V read
+    once), its plain version's and ``scaled_dot_product_attention``'s with
+    ``enable_gqa`` and the length mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    k, v, cl = state.k[0], state.v[0], state.length
+    b, s, kh, dh = k.shape
+    gq = cfg.n_heads // kh
+    gen = torch.Generator(device=k.device).manual_seed(1)
+    q = torch.randn(b, kh, gq, dh, device=k.device, generator=gen)
+    live = int(cl)
+    qs = q.to(k.dtype).reshape(b, kh * gq, 1, dh)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(s, device=k.device) < cl)[None, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    got = flash_decode_cuda(q, k, v, cl)
+    err, rel = rel_to_max(got, flash_decode_ref(q, k, v, cl))
+    check(rel <= FLASH_REL, f"{name}: flash_decode at the cell's shape: "
+                            f"err {err}, over max |plain| {rel}")
+    lib_err, _ = max_rel_err(library().float().reshape(got.shape), got)
+    ms, held_k = device_ms(lambda: flash_decode_cuda(q, k, v, cl), reps=20)
+    plain, held_p = device_ms(lambda: flash_decode_ref(q, k, v, cl), reps=3)
+    lib, held_l = device_ms(library, reps=20)
+    elt = k.element_size()
+    b_ms, b_by = bound(2.0 * b * live * kh * dh * elt + 8.0 * b * kh * gq * dh
+                       + 4.0, 4.0 * b * kh * gq * live * dh)
+    log(f"phase 8: {name}: flash_decode B={b} kh={kh} g={gq} dh={dh} over "
+        f"{live} of {s} positions, {k.dtype} (device time, card held busy "
+        f"while enqueuing: {held_k}, {held_p}, {held_l}): kernel {ms:.4f} ms"
+        f", plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
+        f"(|diff| {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}); kernel vs "
+        f"plain max_abs_err {err:.3e}, over max |plain| {rel:.3e} (bar "
+        f"{FLASH_REL})")
+    return {"name": "flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/kernel.py:62",
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -1765,12 +2306,27 @@ def main() -> int:
         del full
         return [entry, graph_beam_q_time(phase_quantized_graph("cuda"), g)]
 
+    def two_tower():
+        out = phase_two_tower("cuda")
+        entry = embedding_bag_time(out)
+        del out
+        free_card()
+        return entry
+
+    def llama():
+        out = phase_llama("cuda")
+        entry = out["long_500k"]     # the kernels line: long_500k's shape
+        entry["launches"] = out["launches"]
+        return entry
+
     errs = run("phase 1", phase_kernels, g)
     run("phase 2", phase_acceptance, "cuda")
     kernels = run("phase 3", full_flat) or []
     kernels.append(run("phase 4", graph))
     kernels.append(run("phase 5", sharded))
     kernels.extend(run("phase 6", quantized) or [])
+    kernels.append(run("phase 7", two_tower))
+    kernels.append(run("phase 8", llama))
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures),
               file=sys.stderr)

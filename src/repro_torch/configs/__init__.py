@@ -1,3 +1,6 @@
-from .base import RAEConfig
+from .base import (EmbeddingTableSpec, RAEConfig, RecsysConfig, ShapeCell,
+                   TransformerConfig)
+from .registry import get_arch, get_shapes
 
-__all__ = ["RAEConfig"]
+__all__ = ["EmbeddingTableSpec", "RAEConfig", "RecsysConfig", "ShapeCell",
+           "TransformerConfig", "get_arch", "get_shapes"]

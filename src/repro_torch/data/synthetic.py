@@ -1,5 +1,6 @@
-"""Synthetic embedding corpora (numpy; the same seed gives the same bytes as
-the reference package's ``data/synthetic.py``, whose code this copies).
+"""Synthetic embedding corpora and model batches (numpy; the same seed gives
+the same bytes as the reference package's ``data/synthetic.py``, whose code
+this copies).
 
 ``embedding_corpus`` is the paper-dataset analogue: anisotropic low-rank
 Gaussian mixture with a power-law singular spectrum and per-cluster rotations.
@@ -75,3 +76,34 @@ def train_test_split(x: np.ndarray, test_frac: float = 0.1, seed: int = 0
     idx = rng.permutation(x.shape[0])
     n_test = int(round(x.shape[0] * test_frac))
     return x[idx[n_test:]], x[idx[:n_test]]
+
+
+def token_batch(batch: int, seq: int, vocab: int, seed: int = 0) -> dict:
+    """Zipfian token ids ``[batch, seq]`` and their next-token targets."""
+    rng = np.random.default_rng(seed)
+    # zipfian token distribution (realistic softmax pressure)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = 1.0 / ranks
+    p /= p.sum()
+    toks = rng.choice(vocab, size=(batch, seq + 1), p=p).astype(np.int32)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def recsys_batch(batch: int, table_vocabs: dict[str, int], hist_len: int = 0,
+                 n_fields: int = 0, field_vocab: int = 200_000,
+                 seed: int = 0) -> dict:
+    """One id a table a row, a history bag of ``hist_len`` ids with live
+    lengths uniform in ``1..hist_len``, field ids, and labels."""
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    for name, vocab in table_vocabs.items():
+        out[name] = rng.integers(0, vocab, batch).astype(np.int32)
+    if hist_len:
+        vocab = table_vocabs.get("item", table_vocabs.get("hist_item", 1000))
+        out["hist"] = rng.integers(0, vocab, (batch, hist_len)).astype(np.int32)
+        out["hist_len"] = rng.integers(1, hist_len + 1, batch).astype(np.int32)
+    if n_fields:
+        out["fields"] = rng.integers(0, field_vocab,
+                                     (batch, n_fields)).astype(np.int32)
+    out["label"] = (rng.random(batch) < 0.2).astype(np.float32)
+    return out

@@ -1,4 +1,7 @@
-"""Corpus partitioning for the sharded tier (``api/sharded.py``)."""
-from .partitioning import partition_ivf_cells, partition_rows
+"""Parameter schemas (``ParamDef``, ``init_from_schema``) and corpus
+partitioning for the sharded tier (``api/sharded.py``)."""
+from .partitioning import (ParamDef, init_from_schema, partition_ivf_cells,
+                           partition_rows)
 
-__all__ = ["partition_ivf_cells", "partition_rows"]
+__all__ = ["ParamDef", "init_from_schema", "partition_ivf_cells",
+           "partition_rows"]

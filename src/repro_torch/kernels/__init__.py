@@ -3,6 +3,8 @@ triple like the reference package's Pallas kernels: ``kernel.py`` binds
 the CUDA source in ``csrc/``, ``ref.py`` is the plain PyTorch version, and
 ``ops.py`` takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor."""
+from .embedding_bag import embedding_bag
+from .flash_decode import flash_decode
 from .graph_beam import graph_beam
 from .graph_beam_q import graph_beam_q
 from .l2_topk import l2_topk
@@ -10,5 +12,5 @@ from .pq_adc import pq_adc
 from .rae_encode import rae_encode
 from .topk_merge import topk_merge
 
-__all__ = ["graph_beam", "graph_beam_q", "l2_topk", "pq_adc", "rae_encode",
-           "topk_merge"]
+__all__ = ["embedding_bag", "flash_decode", "graph_beam", "graph_beam_q",
+           "l2_topk", "pq_adc", "rae_encode", "topk_merge"]

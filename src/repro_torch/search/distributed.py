@@ -39,6 +39,16 @@ def _padded_topk(s: torch.Tensor, k: int
     return v, i
 
 
+def distributed_topk(scores_: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """scores [N] (higher = better) -> (vals [k], ids [k] int32): the
+    reference's single-device branch (``_padded_topk``), ties to the lower
+    id, ``k > N`` padded with ``(NEG_INF, PAD_ID)``. Its mesh branch (rows
+    sharded over several devices, merged by ``topk_merge``) waits for a
+    4-chip cell, as ``search``'s does."""
+    return _padded_topk(scores_, k)
+
+
 def scores(queries: torch.Tensor, db: torch.Tensor, metric: str
            ) -> torch.Tensor:
     """[Q, N] similarity scores (higher = closer), the reference's form."""

@@ -15,7 +15,12 @@ must agree bit for bit on every input. The ``topk_merge`` kernel orders
 by the plain version's keys and must agree with it bit for bit too, and
 the ``pq_adc`` and ``graph_beam_q`` kernels sum in their plain versions'
 trees (the LUT, the m looked-up entries, the SQ8 dot) and must agree bit
-for bit on every input.
+for bit on every input. The ``embedding_bag`` kernel adds a bag's rows in
+its plain version's slot order and must agree with it bit for bit; the
+``flash_decode`` kernel splits the KV axis and merges the partial
+softmaxes, so it is held within 1e-5 of the largest magnitude, with no
+floor: its outputs average V over up to 70,001 positions and are small,
+and one position dropped or added moves them by far more than that.
 """
 import numpy as np
 import pytest
@@ -25,7 +30,12 @@ torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
 
 from repro_torch import api  # noqa: E402
-from repro_torch.kernels import graph_beam, graph_beam_q, pq_adc  # noqa: E402
+from repro_torch.kernels import (embedding_bag, flash_decode,  # noqa: E402
+                                 graph_beam, graph_beam_q, pq_adc)
+from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda  # noqa: E402
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
 from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda  # noqa: E402
 from repro_torch.kernels.graph_beam.ref import graph_beam_ref  # noqa: E402
@@ -47,6 +57,7 @@ from repro_torch.kernels.topk_merge.ref import topk_merge_ref  # noqa: E402
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card and nvcc")
 TOL = 1e-4
+DECODE_REL = 1e-5
 
 
 def _ints(seed, shape, lo=-3, hi=4):
@@ -62,6 +73,11 @@ def _normal(seed, shape, scale=1.0):
 def _close(got, want):
     err = float((got - want).abs().max())
     assert err <= TOL * max(1.0, float(want.abs().max())), err
+
+
+def _close_decode(got, want):
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= DECODE_REL * top if top > 0 else err == 0, (err, top)
 
 
 @needs_card
@@ -524,3 +540,177 @@ def test_quantized_hnsw_on_card_answers_like_the_cpu_index(quant, tmp_path):
     solo = gpu.search(queries[3:4], 10)
     np.testing.assert_array_equal(solo.indices[0], got.indices[3])
     np.testing.assert_array_equal(solo.scores[0], got.scores[3])
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag: adds the plain version's rows in its slot order, so the
+# two agree bit for bit
+# ---------------------------------------------------------------------------
+def _bag_case(v, d, b, l, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((v, d), generator=g).to(dtype)
+    ids = torch.randint(-3, v + 3, (b, l), generator=g, dtype=torch.int32)
+    lens = torch.randint(-1, l + 4, (b,), generator=g, dtype=torch.int32)
+    return table.cuda(), ids.cuda(), lens.cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,d,b,l", [(1000, 256, 513, 50), (13, 5, 7, 3),
+                                     (10, 1, 4, 5), (97, 24, 33, 37),
+                                     (50, 96, 1, 1)])
+def test_embedding_bag_kernel_matches_plain_bitwise(v, d, b, l, dtype, mode):
+    table, ids, lens = _bag_case(v, d, b, l, dtype)
+    got = embedding_bag_cuda(table, ids, lens, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, embedding_bag_ref(table, ids, lens, mode))
+
+
+@needs_card
+def test_embedding_bag_kernel_limits_and_launch_counter():
+    table, ids, lens = _bag_case(20, 8, 6, 4, torch.float32)
+    before = embedding_bag_cuda.launches
+    embedding_bag(table, ids, lens, "mean")
+    embedding_bag(table[:, :5].contiguous(), ids, lens, "sum")
+    assert embedding_bag_cuda.launches == before + 2
+    embedding_bag_cuda(table, ids[:0], lens[:0], "mean")   # no bags: no launch
+    assert embedding_bag_cuda.launches == before + 2
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_cuda(table, ids.long(), lens, "mean")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        embedding_bag_cuda(table.half(), ids, lens, "mean")
+    with pytest.raises(ValueError, match="CUDA device"):
+        embedding_bag_cuda(table.cpu(), ids, lens, "mean")
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag_cuda(table, ids, lens, "max")
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_cuda(table[:, ::2], ids, lens, "mean")
+
+
+# ---------------------------------------------------------------------------
+# flash_decode: split over the KV axis and merged, so float32 sums in
+# another order than the plain version: within 1e-5 of the largest
+# ---------------------------------------------------------------------------
+def _decode_case(b, kh, g, dh, s, dtype, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, kh, g, dh), generator=gen)
+    k = torch.randn((b, s, kh, dh), generator=gen).to(dtype)
+    v = torch.randn((b, s, kh, dh), generator=gen).to(dtype)
+    return q.cuda(), k.cuda(), v.cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kh,g,dh,s,cur", [
+    (2, 2, 4, 16, 64, 37), (4, 4, 1, 32, 128, 128), (1, 1, 8, 64, 256, 1),
+    (3, 8, 2, 16, 96, 50), (2, 2, 2, 8, 50, 37), (2, 1, 2, 1, 33, 20),
+    (1, 8, 4, 64, 70001, 69990), (4, 8, 4, 64, 4096, 4000),
+    (1, 2, 3, 128, 300, 299), (2, 2, 2, 6, 40, 0), (1, 2, 2, 12, 40, 77),
+    (1, 1, 32, 128, 260, 200)])
+def test_flash_decode_kernel_matches_plain(b, kh, g, dh, s, cur, dtype):
+    q, k, v = _decode_case(b, kh, g, dh, s, dtype)
+    cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    got = flash_decode_cuda(q, k, v, cl)
+    torch.cuda.synchronize()
+    _close_decode(got, flash_decode_ref(q, k, v, cl))
+    if cur <= 0:
+        assert torch.all(got == 0)
+
+
+@needs_card
+def test_flash_decode_reads_the_length_on_the_device():
+    """One launch sequence, the length changed on the device between two
+    calls: no host value is needed."""
+    q, k, v = _decode_case(2, 8, 4, 64, 5000, torch.bfloat16)
+    cl = torch.tensor(1000, dtype=torch.int32, device="cuda")
+    a = flash_decode(q, k, v, cl)
+    cl += 2345
+    b = flash_decode(q, k, v, cl)
+    torch.cuda.synchronize()
+    _close_decode(a, flash_decode_ref(q, k, v, 1000))
+    _close_decode(b, flash_decode_ref(q, k, v, 3345))
+
+
+@needs_card
+def test_flash_decode_kernel_limits_and_launch_counter():
+    q, k, v = _decode_case(1, 2, 2, 16, 64, torch.float32)
+    cl = torch.tensor(10, dtype=torch.int32, device="cuda")
+    before = flash_decode_cuda.launches
+    flash_decode(q, k, v, 10)
+    flash_decode(q, k.bfloat16(), v.bfloat16(), cl)
+    assert flash_decode_cuda.launches == before + 2
+    with pytest.raises(ValueError, match="dh <= 128"):
+        big = torch.zeros((1, 1, 1, 129), device="cuda")
+        flash_decode_cuda(big, torch.zeros((1, 4, 1, 129), device="cuda"),
+                          torch.zeros((1, 4, 1, 129), device="cuda"), cl)
+    with pytest.raises(ValueError, match="g \\* dh"):
+        wide = torch.zeros((1, 1, 64, 128), device="cuda")
+        cache = torch.zeros((1, 4, 1, 128), device="cuda")
+        flash_decode_cuda(wide, cache, cache, cl)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_decode_cuda(q, k, v.bfloat16(), cl)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode_cuda(q, k, v, cl.long())
+    with pytest.raises(ValueError, match="shapes"):
+        flash_decode_cuda(q, k[:, :, :1].contiguous(), v, cl)
+
+
+# ---------------------------------------------------------------------------
+# the model paths on the card against the CPU
+# ---------------------------------------------------------------------------
+@needs_card
+def test_two_tower_on_card_answers_like_the_cpu(monkeypatch):
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.reduce import reduce_cell, reduce_config
+    from repro_torch.models import registry
+    from repro_torch.models.registry import build_cell
+
+    cfg = reduce_config(*get_arch("two-tower-retrieval"))
+    monkeypatch.setattr(registry, "get_arch", lambda arch: (cfg, "recsys"))
+    cell = build_cell("two-tower-retrieval", "serve_p99", "cuda")
+    cell_cpu = build_cell("two-tower-retrieval", "serve_p99", "cpu")
+    params = cell.init(0)
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    (batch,) = cell.make_inputs(3)
+    before = embedding_bag_cuda.launches
+    got = cell.fn(params, batch)
+    assert embedding_bag_cuda.launches == before + 1
+    want = cell_cpu.fn(params_cpu, {k: v.cpu() for k, v in batch.items()})
+    assert float((got.cpu() - want).abs().max()) < 1e-2
+    retr = build_cell("two-tower-retrieval",
+                      reduce_cell(cell.cell.replace(kind="retrieval",
+                                                    n_candidates=512,
+                                                    global_batch=1),
+                                  "recsys"), "cuda")
+    (batch,) = retr.make_inputs(4)
+    vals, ids = retr.fn(params, batch)
+    assert vals.shape == (100,) and torch.all(vals[:-1] >= vals[1:])
+
+
+@needs_card
+def test_llama_decode_on_card_answers_like_the_cpu():
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.reduce import reduce_config
+    from repro_torch.models.transformer import model as tm
+
+    cfg = dataclasses.replace(reduce_config(*get_arch("llama3.2-1b")),
+                              compute_dtype="float32")
+    params = tm.init(cfg, 0, "cuda")
+    params_cpu = {k: ({n: t.cpu() for n, t in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (3, 24),
+                         generator=torch.Generator().manual_seed(0))
+    _, _, st = tm.prefill(params, toks[:, :20].cuda(), cfg, max_len=32)
+    _, _, st_cpu = tm.prefill(params_cpu, toks[:, :20], cfg, max_len=32)
+    before = flash_decode_cuda.launches
+    for i in range(20, 24):
+        lg, _, st = tm.decode_step(params, st, toks[:, i].cuda(), cfg)
+        lg_cpu, _, st_cpu = tm.decode_step(params_cpu, st_cpu, toks[:, i],
+                                           cfg)
+        _close(lg.cpu(), lg_cpu)
+    assert flash_decode_cuda.launches == before + 4 * cfg.n_layers
+    assert int(st.length) == 24

@@ -9,7 +9,11 @@ Inputs are made with numpy from a seed and handed to both.
 Tolerances: ids must be equal; scores within ``rtol=1e-5, atol=1e-4``
 (float32 sums taken in another order by XLA and by PyTorch). On an
 integer-valued corpus every product and sum is exact in float32, so scores
-must be bit-equal there, and ties must go to the lower id.
+must be bit-equal there, and ties must go to the lower id. ``embedding_bag``
+adds each bag's rows in the Pallas kernel's slot order, so the two are
+equal; against the reference's ``ref.py`` (XLA's own sum order) within
+``rtol=1e-6``. ``flash_decode`` is held to the reference's own sweep bar,
+``rtol=2e-4, atol=2e-5`` (float32 softmax sums in another order).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py``.
@@ -24,16 +28,21 @@ torch.set_float32_matmul_precision("highest")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import embedding_bag as jax_embedding_bag  # noqa: E402
+from repro.kernels import flash_decode as jax_flash_decode  # noqa: E402
 from repro.kernels import graph_beam_q as jax_graph_beam_q  # noqa: E402
 from repro.kernels import l2_topk as jax_l2_topk  # noqa: E402
 from repro.kernels import pq_adc as jax_pq_adc  # noqa: E402
 from repro.kernels import rae_encode as jax_rae_encode  # noqa: E402
 from repro.kernels import topk_merge as jax_topk_merge  # noqa: E402
+from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_bag_ref  # noqa: E402
+from repro.kernels.flash_decode.ref import flash_decode_ref as jax_decode_ref  # noqa: E402
 from repro.kernels.graph_beam_q.ref import graph_beam_q_ref as jax_hop_q_ref  # noqa: E402
 from repro.kernels.pq_adc.ref import pq_adc_ref as jax_pq_ref  # noqa: E402
 from repro.kernels.topk_merge.ref import topk_merge_ref as jax_merge_ref  # noqa: E402
-from repro_torch.kernels import (graph_beam_q, l2_topk, pq_adc,  # noqa: E402
-                                 rae_encode, topk_merge)
+from repro_torch.kernels import (embedding_bag, flash_decode,  # noqa: E402
+                                 graph_beam_q, l2_topk, pq_adc, rae_encode,
+                                 topk_merge)
 from repro_torch.kernels.common import NEG_INF, PAD_ID  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref  # noqa: E402
 
@@ -472,3 +481,207 @@ def test_graph_beam_q_rejects_bad_mode_ksub_and_operand():
         graph_beam_q(*a, mode="pq", ksub=3)
     with pytest.raises(ValueError, match="sq8 operand dim"):
         graph_beam_q(a[0][:, :3], *a[1:], mode="sq8")
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag
+# ---------------------------------------------------------------------------
+# (V, d, B, L): the reference's ragged cases (odd_shapes, d1) and a d
+# that takes the kernel's 16-byte loads
+BAG_CASES = {"odd_shapes": (13, 5, 7, 3), "d1": (10, 1, 4, 5),
+             "d16": (64, 16, 9, 6)}
+
+
+def _bag_inputs(case, dtype, seed=0):
+    v, d, b, l = case
+    rng = np.random.default_rng(v + b + seed)
+    tj, tt = _pair(_normal(v + seed, (v, d)), dtype)
+    ids = rng.integers(0, v, (b, l)).astype(np.int32)
+    lens = rng.integers(1, l + 1, (b,)).astype(np.int32)
+    return tj, tt, ids, lens
+
+
+# every case in float32; the reference's two parity cases in bf16 too
+BAG_PARAMS = ([(n, "f32", "mean") for n in BAG_CASES]
+              + [("odd_shapes", "bf16", "mean"), ("d1", "bf16", "mean"),
+                 ("d16", "bf16", "sum")])
+
+
+@pytest.mark.parametrize("name,dtype,mode", BAG_PARAMS,
+                         ids=["-".join(p) for p in BAG_PARAMS])
+def test_embedding_bag_matches_pallas_and_reference_ref(name, dtype, mode):
+    tj, tt, ids, lens = _bag_inputs(BAG_CASES[name], dtype)
+    got = embedding_bag(tt, torch.from_numpy(ids), torch.from_numpy(lens),
+                        mode)
+    assert got.dtype == torch.float32 and got.shape == (ids.shape[0],
+                                                        tt.shape[1])
+    pallas = jax_embedding_bag(tj, jnp.asarray(ids), jnp.asarray(lens),
+                               mode=mode, impl="pallas", interpret=True)
+    # the same rows added in the same slot order: equal
+    np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    want = jax_bag_ref(tj, jnp.asarray(ids), jnp.asarray(lens), mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_embedding_bag_lengths_zero_and_past_the_bag():
+    """lengths <= 0 give zeros; lengths > L sum all L slots and divide by
+    the length, as the Pallas kernel does."""
+    tj, tt, ids, _ = _bag_inputs(BAG_CASES["d16"], "f32")
+    lens = np.array([0, -2, 6, 9, 40, 1, 3, 0, 7], np.int32)
+    for mode in ("mean", "sum"):
+        got = embedding_bag(tt, torch.from_numpy(ids),
+                            torch.from_numpy(lens), mode).numpy()
+        want = jax_embedding_bag(tj, jnp.asarray(ids), jnp.asarray(lens),
+                                 mode=mode, impl="pallas", interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert np.all(got[[0, 1, 7]] == 0.0)
+    full = embedding_bag(tt, torch.from_numpy(ids),
+                         torch.from_numpy(np.full(9, 6, np.int32)), "sum")
+    mean = embedding_bag(tt, torch.from_numpy(ids), torch.from_numpy(lens),
+                         "mean")
+    np.testing.assert_allclose(mean[4].numpy(), full[4].numpy() / 40,
+                               rtol=1e-6)
+
+
+def test_embedding_bag_clips_out_of_range_ids_c6():
+    """ROADMAP C6: the port clips ids to [0, V-1], as the reference's op and
+    model path do; the reference's ref.py reads jnp.take's fill instead,
+    and an id >= V turns the bag to NaN even in a dead slot."""
+    v, d = 4, 3
+    table = _normal(0, (v, d))
+    ids = np.array([[1, 7, 9], [-1, 2, 9], [5, 0, 0]], np.int32)
+    lens = np.array([1, 2, 3], np.int32)
+    got = embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                        torch.from_numpy(lens), "sum").numpy()
+    np.testing.assert_array_equal(got[0], table[1])               # pads dead
+    np.testing.assert_array_equal(got[1], table[0] + table[2])    # -1 -> 0
+    np.testing.assert_array_equal(got[2], (table[3] + table[0]) + table[0])
+    pallas = jax_embedding_bag(jnp.asarray(table), jnp.asarray(ids),
+                               jnp.asarray(lens), mode="sum", impl="pallas",
+                               interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    ref = np.asarray(jax_bag_ref(jnp.asarray(table), jnp.asarray(ids),
+                                 jnp.asarray(lens), "sum"))
+    assert np.isnan(ref[0]).all() and np.isnan(ref[2]).all()
+
+
+def test_embedding_bag_dead_slots_are_not_read():
+    """A row that is not finite, seen only from a dead slot, leaves the bag
+    finite here; the Pallas kernel adds it times zero and gets NaN (the one
+    difference the port's docstring names)."""
+    table = _normal(1, (6, 4))
+    table[5] = np.nan
+    ids = np.array([[0, 1, 5], [2, 5, 5]], np.int32)
+    lens = np.array([2, 1], np.int32)
+    got = embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                        torch.from_numpy(lens), "mean").numpy()
+    np.testing.assert_array_equal(got[0], (table[0] + table[1]) / 2)
+    np.testing.assert_array_equal(got[1], table[2])
+    pallas = np.asarray(jax_embedding_bag(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(lens),
+        mode="mean", impl="pallas", interpret=True))
+    assert np.isnan(pallas).all()
+
+
+def test_embedding_bag_rejects_an_unknown_mode():
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag(torch.zeros(3, 2), torch.zeros(1, 2, dtype=torch.int32),
+                      torch.ones(1, dtype=torch.int32), "max")
+
+
+# ---------------------------------------------------------------------------
+# flash_decode
+# ---------------------------------------------------------------------------
+DEC_RTOL, DEC_ATOL = 2e-4, 2e-5
+# (b, kh, g, dh, s, cur, bs): the reference's sweep
+# (tests/test_kernels.py:117; sweep1 has cur_len = S) and its ragged cases
+# (ragged_s, cur1, dh1)
+DECODE_CASES = {
+    "sweep0": (2, 2, 4, 16, 64, 37, 32), "sweep1": (4, 4, 1, 32, 128, 128, 32),
+    "sweep2": (1, 1, 8, 64, 256, 1, 32), "sweep3": (3, 8, 2, 16, 96, 50, 32),
+    "ragged_s": (2, 2, 2, 8, 50, 37, 32), "cur1": (1, 1, 4, 8, 64, 1, 32),
+    "dh1": (2, 1, 2, 1, 33, 20, 16),
+}
+
+
+def _decode_inputs(case, dtype):
+    b, kh, g, dh, s, _, _ = case
+    qj, qt = _pair(_normal(b, (b, kh, g, dh)), dtype)
+    kj, kt = _pair(_normal(b + 1, (b, s, kh, dh)), dtype)
+    vj, vt = _pair(_normal(b + 2, (b, s, kh, dh)), dtype)
+    return (qj, kj, vj), (qt, kt, vt)
+
+
+# every case in float32; the reference's ragged parity cases in bf16 too
+DECODE_PARAMS = ([(n, "f32") for n in DECODE_CASES]
+                 + [(n, "bf16") for n in ("ragged_s", "cur1", "dh1")])
+
+
+@pytest.mark.parametrize("name,dtype", DECODE_PARAMS,
+                         ids=["-".join(p) for p in DECODE_PARAMS])
+def test_flash_decode_matches_pallas_and_reference_ref(name, dtype):
+    case = DECODE_CASES[name]
+    cur, bs = case[5], case[6]
+    (qj, kj, vj), (qt, kt, vt) = _decode_inputs(case, dtype)
+    got = flash_decode(qt, kt, vt, cur)
+    assert got.dtype == torch.float32 and got.shape == qt.shape
+    pallas = jax_flash_decode(qj, kj, vj, cur, impl="pallas", bs=bs,
+                              interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas),
+                               rtol=DEC_RTOL, atol=DEC_ATOL)
+    want = jax_decode_ref(qj, kj, vj, cur)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=DEC_RTOL,
+                               atol=DEC_ATOL)
+    # a device-side length gives the same answer as a host int
+    same = flash_decode(qt, kt, vt, torch.tensor(cur, dtype=torch.int32))
+    np.testing.assert_array_equal(same.numpy(), got.numpy())
+
+
+def test_flash_decode_at_cur_len_zero_gives_zeros_c5():
+    """ROADMAP C5: at cur_len = 0 the port gives zeros, as the Pallas
+    kernel and the model's decode path do; the reference's ref.py takes a
+    softmax over a row of NEG_INF and returns the mean of every value."""
+    case = (1, 1, 2, 8, 32, 0, 16)
+    (qj, kj, vj), (qt, kt, vt) = _decode_inputs(case, "f32")
+    got = flash_decode(qt, kt, vt, 0).numpy()
+    assert np.all(got == 0.0)
+    pallas = np.asarray(jax_flash_decode(qj, kj, vj, 0, impl="pallas",
+                                         bs=16, interpret=True))
+    assert np.all(pallas == 0.0)
+    ref = np.asarray(jax_decode_ref(qj, kj, vj, 0))
+    mean_v = np.asarray(vj).mean(axis=1)                  # [b, kh, dh]
+    np.testing.assert_allclose(ref, np.broadcast_to(mean_v[:, :, None],
+                                                    ref.shape), rtol=1e-5,
+                               atol=1e-6)
+    assert np.abs(ref).max() > 0.1
+
+
+def test_flash_decode_cur_len_past_the_cache_attends_to_every_position():
+    """cur_len > S attends to all S positions, as the reference's ref.py
+    does. The reference's Pallas op pads S up to a multiple of its block
+    with zero rows and its mask does not stop at S, so there the pad rows
+    join the softmax (one more difference of its two versions, beside C5)."""
+    case = (1, 2, 3, 8, 40, 77, 16)
+    (qj, kj, vj), (qt, kt, vt) = _decode_inputs(case, "f32")
+    got = flash_decode(qt, kt, vt, 77)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_decode_ref(
+        qj, kj, vj, 77)), rtol=DEC_RTOL, atol=DEC_ATOL)
+    np.testing.assert_array_equal(got.numpy(),
+                                  flash_decode(qt, kt, vt, 40).numpy())
+    pallas = np.asarray(jax_flash_decode(qj, kj, vj, 77, impl="pallas",
+                                         bs=16, interpret=True))
+    assert np.abs(pallas - got.numpy()).max() > 1e-2   # its 8 zero pad rows
+
+
+def test_flash_decode_ignores_positions_past_cur_len():
+    """Rows past cur_len (stale or garbage, NaN included) change nothing."""
+    case = DECODE_CASES["ragged_s"]
+    _, (qt, kt, vt) = _decode_inputs(case, "f32")
+    cur = case[5]
+    got = flash_decode(qt, kt, vt, cur)
+    kt2, vt2 = kt.clone(), vt.clone()
+    kt2[:, cur:] = float("nan")
+    vt2[:, cur:] = 1e6
+    np.testing.assert_array_equal(flash_decode(qt, kt2, vt2, cur).numpy(),
+                                  got.numpy())
