@@ -71,6 +71,12 @@ Phases:
    seeded cache: step time, tokens per second, the idle share of a step;
    and the decode kernel's time at both cells' shapes.
 
+``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
+times ``rae_encode``, ``flash_decode`` and the llama decode steps with the
+port in ``PARENT/src`` (a ``git archive`` of the parent commit) and with
+this tree's, in turns (parent, change, change, parent), each in a process
+of its own, on one card.
+
 Every launch counter is set to 0 just before phases 3 to 8 drive their
 paths and read just after; a kernel of the path that did not launch fails
 the run. The last lines are a ``kernels`` JSON object, the card's
@@ -100,8 +106,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W power limit): float32
-# outside the tensor cores, and HBM3.
+# outside the tensor cores, TF32 on the tensor cores (dense), and HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain: float32 sums in another order; ids must be equal
 ENCODE_TOL = 1e-4   # |kernel - plain| <= ENCODE_TOL * max(1, max |plain|)
@@ -219,8 +226,9 @@ def traced_device_ms(fn, reps: int) -> float:
                     if e.device_type == DeviceType.CUDA]) * 1e-3 / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS
+          ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -258,9 +266,12 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
             err, rel = max_rel_err(z, rae_encode_ref(x, w, normalize))
             errs["rae_encode"] = max(errs["rae_encode"], err)
             log(f"phase 1: rae_encode [{rows},{n}]@[{n},{m}] "
-                f"normalize={normalize}: max_abs_err {err:.3e}")
+                f"normalize={normalize}: max_abs_err {err:.3e}, over "
+                f"max(1, max |plain|) {rel:.3e}")
             check(rel <= ENCODE_TOL, f"rae_encode {rows}x{n}x{m} "
                                      f"normalize={normalize}: err {err}")
+    errs["rae_encode"] = max(errs["rae_encode"],
+                             phase_kernels_rae_encode_variants(g))
     nq, n, d = 257, 100_003, 64     # ragged against every tile size
     q = torch.randn(nq, d, device="cuda", generator=g)
     db = torch.randn(n, d, device="cuda", generator=g)
@@ -291,6 +302,53 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
     errs["embedding_bag"] = phase_kernels_embedding_bag(g)
     errs["flash_decode"] = phase_kernels_flash_decode(g)
     return errs
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """The same values, contiguous, one element past a 16-byte boundary:
+    the kernels' scalar-load variants."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    check(view.is_contiguous() and view.data_ptr() % 16 != 0,
+          "an offset view")
+    return view
+
+
+def phase_kernels_rae_encode_variants(g: torch.Generator) -> float:
+    """The encoder's in-kernel variants against the plain version: the
+    tensor-map / wgmma path (m in 4, 8, 60, 64 x n in 4, 132, 768), every
+    block-tile tier of the mma.sync path (m in 1, 8, 100, 512 x n in 1,
+    129, 770), all over 333 rows (no multiple of a row tile), and rows one
+    element off a 16-byte boundary. Within ``ENCODE_TOL``."""
+    from repro_torch.kernels.rae_encode import rae_encode
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+
+    worst, worst_rel, cases = 0.0, 0.0, 0
+    shapes = [(333, n, m) for n in (1, 129, 770) for m in (1, 8, 100, 512)]
+    shapes += [(333, n, m) for n in (4, 132, 768) for m in (4, 8, 60, 64)]
+    for rows, n, m in shapes + [(4096, 768, 64), (333, 128, 100)]:
+        x = torch.randn(rows, n, device="cuda", generator=g)
+        w = torch.randn(n, m, device="cuda", generator=g) / n ** 0.5
+        views = [(x, w)] if (rows, n, m) in shapes else \
+            [(offset_view(x), w), (offset_view(x), offset_view(w))]
+        for xv, wv in views:
+            for normalize in (False, True):
+                z = rae_encode(xv, wv, normalize=normalize)
+                sync()
+                err, rel = max_rel_err(z, rae_encode_ref(x, w, normalize))
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                cases += 1
+                check(rel <= ENCODE_TOL,
+                      f"rae_encode {rows}x{n}x{m} normalize={normalize} "
+                      f"aligned={xv.data_ptr() % 16 == 0}: err {err}")
+    log(f"phase 1: rae_encode {cases} more cases (m in 1, 8, 100, 512 x n "
+        f"in 1, 129, 770 and m in 4, 8, 60, 64 x n in 4, 132, 768, over 333 "
+        f"rows; [4096,768]@[768,64] and "
+        f"[333,128]@[128,100] with x, and x and w, one element off a "
+        f"16-byte boundary; raw and normalized): max_abs_err {worst:.3e}, "
+        f"over max(1, max |plain|) {worst_rel:.3e} (bar {ENCODE_TOL})")
+    return worst
 
 
 def phase_kernels_embedding_bag(g: torch.Generator) -> float:
@@ -333,8 +391,10 @@ def phase_kernels_flash_decode(g: torch.Generator) -> float:
     """The decode-attention kernel against its plain version, float32 and
     bfloat16 caches: the reference's ragged cases (ragged_s, cur1, dh1) and
     llama3.2-1b's heads (kh=8, g=4, dh=64) at cur_len 0, 1, ragged and S,
-    past S, and over 70,001 positions (many splits). Float32 softmax sums
-    in another order: within ``FLASH_REL`` of the largest magnitude."""
+    past S, and over 70,001 positions (many splits); caches one element off
+    a 16-byte boundary (the scalar variant), and live lengths at, around
+    and inside a split's end. Float32 softmax sums in another order: within
+    ``FLASH_REL`` of the largest magnitude."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
@@ -362,11 +422,39 @@ def phase_kernels_flash_decode(g: torch.Generator) -> float:
                 if cur == 0:
                     check(bool((got == 0).all()), "flash_decode at cur_len "
                                                   "0 is not zeros")
+    from repro_torch.kernels.flash_decode.kernel import TILE, split_plan
+
+    # caches one element off a 16-byte boundary (the scalar variant), and
+    # live lengths that end a split, one short or past it, or mid-tile
+    unaligned = [(2, 8, 4, 64, 4096, 3001), (1, 2, 3, 128, 300, 299),
+                 (1, 1, 32, 128, 260, 200), (2, 2, 2, 6, 40, 33)]
+    split, _ = split_plan(1, 8, 20_000, TILE)
+    ends = [(1, 8, 4, 64, 20_000, cur) for cur in
+            (split - 1, split, split + 1, 2 * split + 37)]
+    for b, kh, gq, dh, s, cur in unaligned + ends:
+        q = torch.randn(b, kh, gq, dh, device="cuda", generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            k = torch.randn(b, s, kh, dh, device="cuda", generator=g).to(dtype)
+            v = torch.randn(b, s, kh, dh, device="cuda", generator=g).to(dtype)
+            if (b, kh, gq, dh, s, cur) in unaligned:
+                k, v = offset_view(k), offset_view(v)
+            cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+            got = flash_decode(q, k, v, cl)
+            sync()
+            err, rel = rel_to_max(got, flash_decode_ref(q, k, v, cl))
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            cases += 1
+            check(rel <= FLASH_REL, f"flash_decode B={b} kh={kh} g={gq} "
+                                    f"dh={dh} S={s} cur={cur} {dtype} "
+                                    f"aligned={k.data_ptr() % 16 == 0}: "
+                                    f"err {err}")
     log(f"phase 1: flash_decode {cases} cases (the reference's ragged_s, "
         f"cur1, dh1; llama3.2-1b heads at cur_len 0, 1, 3001, S, > S over "
         f"S=4096 and 69,990 of 70,001; dh=128; float32 and bfloat16 "
-        f"caches): max_abs_err {worst:.3e}, over max |plain| {worst_rel:.3e}"
-        f" (bar {FLASH_REL})")
+        f"caches; caches one element off a 16-byte boundary at dh 64, 128 "
+        f"and 6, g up to 32; lengths {split - 1}, {split}, {split + 1} and "
+        f"{2 * split + 37} over splits of {split}): max_abs_err "
+        f"{worst:.3e}, over max |plain| {worst_rel:.3e} (bar {FLASH_REL})")
     return worst
 
 
@@ -815,11 +903,18 @@ def kernel_times(full: dict) -> list[dict]:
     enc_ms = cuda_ms(lambda: rae_encode_cuda(x, w, False), reps=10)
     enc_plain = cuda_ms(lambda: rae_encode_ref(x, w, False), reps=10)
     enc_lib = cuda_ms(lambda: torch.matmul(x, w), reps=10)
-    enc_bound, enc_by = bound(4.0 * (rows * n + n * m + rows * m),
-                              2.0 * rows * n * m)
+    # the kernel's work: three TF32 products on the tensor cores (3xTF32);
+    # the float32 product on SIMT float32, for comparison
+    enc_bytes = 4.0 * (rows * n + n * m + rows * m)
+    enc_bound, enc_by = bound(enc_bytes, 3 * 2.0 * rows * n * m,
+                              PEAK_TF32_FLOPS)
+    simt_bound, simt_by = bound(enc_bytes, 2.0 * rows * n * m)
     log(f"phase 3: rae_encode [{rows},{n}]@[{n},{m}]: kernel {enc_ms:.4f} "
         f"ms, plain {enc_plain:.4f} ms, torch.matmul {enc_lib:.4f} ms, "
-        f"bound {enc_bound:.4f} ms ({enc_by})")
+        f"bound with tensor cores {enc_bound:.4f} ms ({enc_by}; 3xTF32 at "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), on SIMT float32 "
+        f"{simt_bound:.4f} ms ({simt_by}); kernel at "
+        f"{enc_bytes / enc_ms / 1e6:.1f} GB/s")
 
     q, d, d_sq = prepare(full["zq"], idx.base._db, "euclidean", None)
     nq, dim = q.shape
@@ -2238,10 +2333,12 @@ def flash_decode_time(state, cfg, name: str) -> dict:
     elt = k.element_size()
     b_ms, b_by = bound(2.0 * b * live * kh * dh * elt + 8.0 * b * kh * gq * dh
                        + 4.0, 4.0 * b * kh * gq * live * dh)
+    live_bytes = 2.0 * b * live * kh * dh * elt
     log(f"phase 8: {name}: flash_decode B={b} kh={kh} g={gq} dh={dh} over "
         f"{live} of {s} positions, {k.dtype} (device time, card held busy "
         f"while enqueuing: {held_k}, {held_p}, {held_l}): kernel {ms:.4f} ms"
-        f", plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
+        f" ({live_bytes / ms / 1e6:.1f} GB/s of live K and V), plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms "
         f"(|diff| {lib_err:.2e}), bound {b_ms:.4f} ms ({b_by}); kernel vs "
         f"plain max_abs_err {err:.3e}, over max |plain| {rel:.3e} (bar "
         f"{FLASH_REL})")
@@ -2250,6 +2347,115 @@ def flash_decode_time(state, cfg, name: str) -> dict:
             "replaces": "src/repro/kernels/flash_decode/kernel.py:62",
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib}
+
+
+def redesign_times(src: str) -> dict:
+    """``rae_encode`` and ``flash_decode`` (the kernels PR 17 redesigned)
+    and the decode steps around the latter, timed with the port whose
+    ``src`` directory is given (put first on the path, its kernels built
+    from its own sources): the encoder at [1M,768]@[768,64] with its
+    ``torch.matmul``; decode_32k (cut to B=32) and long_500k as phase 8
+    drives them, 8 greedy steps from a seeded cache, each step's wall time
+    and the card's time a step, then the decode kernel at the cell's shape
+    (``flash_decode_time``). One tree a process; ``--ab`` runs two trees
+    in turns."""
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import _build
+
+    _build.build(("rae_encode", "flash_decode"))
+    import repro_torch
+    from repro_torch.configs import get_shapes
+    from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+    from repro_torch.models.registry import build_cell
+
+    check(os.path.abspath(repro_torch.__file__).startswith(
+        os.path.abspath(src)), f"repro_torch imported from {src}")
+    out: dict = {"src": src}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows, n, m = 1_000_000, 768, 64
+    x = torch.randn(rows, n, device="cuda", generator=g)
+    w = torch.randn(n, m, device="cuda", generator=g) / n ** 0.5
+    _, rel = max_rel_err(rae_encode_cuda(x, w, False), x @ w)
+    check(rel <= ENCODE_TOL, f"rae_encode at [1M,768]@[768,64]: {rel}")
+    nbytes = 4.0 * (rows * n + n * m + rows * m)
+    out["rae_encode"] = {
+        "ms": cuda_ms(lambda: rae_encode_cuda(x, w, False), reps=20),
+        "library_ms": cuda_ms(lambda: torch.matmul(x, w), reps=20),
+        "bound_ms": bound(nbytes, 6.0 * rows * n * m, PEAK_TF32_FLOPS)[0],
+        "simt_bound_ms": bound(nbytes, 2.0 * rows * n * m)[0],
+        "rel_err": rel}
+    del x, w
+    free_card()
+    shapes = {c.name: c for c in get_shapes(LLAMA)}
+    params = None
+    for name, batch in (("decode_32k", 32), ("long_500k", 1)):
+        cell = build_cell(LLAMA, shapes[name].replace(global_batch=batch),
+                          "cuda")
+        params = cell.init(0) if params is None else params
+        state, tok = cell.make_inputs(0)
+        lat = []
+        for _ in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, _, state = cell.fn(params, state, tok)
+            tok = lg[:, :cell.cfg.vocab_size].argmax(-1)
+            sync()
+            lat.append(time.perf_counter() - t0)
+        card, held = device_ms(lambda: cell.fn(params, state, tok), reps=4)
+        entry = flash_decode_time(state, cell.cfg, name)
+        k = state.k[0]
+        live = 2.0 * k.shape[0] * int(state.length) * k.shape[2] \
+            * k.shape[3] * k.element_size()
+        out[name] = {"step_ms": [t * 1e3 for t in lat],
+                     "step_median_ms": float(np.median(lat[1:])) * 1e3,
+                     "card_ms_a_step": card, "card_held_busy": held,
+                     "flash_decode": entry,
+                     "flash_decode_gb_s": live / entry["ms"] / 1e6}
+        del state, lg, tok
+        free_card()
+    return out
+
+
+def ab(parent_src: str) -> int:
+    """Parent and change on one card in turns (parent, change, change,
+    parent), each ``redesign_times`` in a process of its own; prints each
+    run's numbers, then one JSON line of all four and the card's name and
+    power limit."""
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    runs = []
+    for label, src in (("parent", parent_src), ("change", here),
+                       ("change", here), ("parent", parent_src)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--times", src], capture_output=True,
+                              text=True, timeout=900)
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            log(f"{label}: {line}")
+        if proc.returncode != 0 or not lines:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        res = json.loads(lines[-1])
+        res["label"] = label
+        runs.append(res)
+        enc = res["rae_encode"]
+        log(f"{label} ({src}, {time.perf_counter() - t0:.1f} s): rae_encode "
+            f"{enc['ms']:.4f} ms (torch.matmul {enc['library_ms']:.4f}, "
+            f"bound {enc['bound_ms']:.4f}, err {enc['rel_err']:.2e}); "
+            + "; ".join(
+                f"{c}: flash_decode {res[c]['flash_decode']['ms']:.4f} ms "
+                f"({res[c]['flash_decode_gb_s']:.0f} GB/s; SDPA "
+                f"{res[c]['flash_decode']['library_ms']:.4f}, bound "
+                f"{res[c]['flash_decode']['bound_ms']:.4f}), step median "
+                f"{res[c]['step_median_ms']:.3f} ms, card "
+                f"{res[c]['card_ms_a_step']:.3f} ms a step"
+                for c in ("decode_32k", "long_500k")))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(json.dumps({"ab": runs}))
+    print(smi)
+    return 0
 
 
 def main() -> int:
@@ -2347,5 +2553,27 @@ def main() -> int:
     return 0
 
 
+def cli() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ab", metavar="PARENT_SRC",
+                    help="time rae_encode, flash_decode and the decode "
+                         "steps with the parent tree's src directory and "
+                         "this one's, in turns, and run nothing else")
+    ap.add_argument("--times", metavar="SRC", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        return main()              # refuses without a card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if args.times:
+        print(json.dumps(redesign_times(args.times)))
+        return 0
+    if args.ab:
+        return ab(args.ab)
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

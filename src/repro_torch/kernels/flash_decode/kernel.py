@@ -18,10 +18,19 @@ import torch
 from .. import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Blocks pass 1 aims for: a few waves of the card's 132 SMs. The split
-#: is chosen from the cache's size S, never from ``cur_len``, which stays
-#: on the device.
-TARGET_BLOCKS = 2048
+#: Blocks pass 1 aims for: one wave of two resident blocks (256 threads,
+#: 48 KB of cp.async ring each) on each of the card's 132 SMs. A block
+#: streams its split from a ring with loads in flight, so a few long
+#: splits keep the bandwidth better than many short ones (on the H100 at
+#: long_500k 264 blocks ran faster than 528, 1056 or 2048), and pass 2 has
+#: few partials to merge. The split is chosen
+#: from the cache's size S, never from ``cur_len``, which stays on the
+#: device.
+TARGET_BLOCKS = 2 * 132
+#: Positions of the split granularity, ``kTile`` of the source (a stage of
+#: a block at dh = 64 in bfloat16); the launch refuses a split that is not
+#: a whole number of them.
+TILE = 64
 
 
 @functools.cache
@@ -34,8 +43,9 @@ def _lib() -> ctypes.CDLL:
     for name in ("flash_decode_max_dh", "flash_decode_max_gd",
                  "flash_decode_tile"):
         getattr(lib, name).restype = i
-    lib.flash_decode_smem.argtypes = [i, i]
-    lib.flash_decode_smem.restype = ctypes.c_longlong
+    if lib.flash_decode_tile() != TILE:
+        raise RuntimeError(f"flash_decode: the kernel's tile is "
+                           f"{lib.flash_decode_tile()}, kernel.py's {TILE}")
     return lib
 
 
@@ -89,17 +99,12 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{lib.flash_decode_max_dh()}, got dh={dh}")
     if g * dh > lib.flash_decode_max_gd():
         raise ValueError(f"flash_decode kernel supports g * dh <= "
-                         f"{lib.flash_decode_max_gd()} (a block's "
-                         f"accumulators), got g={g}, dh={dh}")
+                         f"{lib.flash_decode_max_gd()} (the partials a "
+                         f"block merges), got g={g}, dh={dh}")
     if s < 1 or b > 65535 or kh > 65535:
         raise ValueError(f"flash_decode_cuda shapes out of range: B={b}, "
                          f"S={s}, kh={kh}")
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if lib.flash_decode_smem(g, dh) > limit:
-        raise ValueError(f"flash_decode kernel: g={g}, dh={dh} needs "
-                         f"{lib.flash_decode_smem(g, dh)} bytes of shared "
-                         f"memory, the card gives a block {limit}")
-    split, nsplit = split_plan(b, kh, s, lib.flash_decode_tile())
+    split, nsplit = split_plan(b, kh, s, TILE)
     out = torch.empty((b, kh, g, dh), device=dev, dtype=torch.float32)
     pm = torch.empty((b, kh, nsplit, g), device=dev, dtype=torch.float32)
     pl = torch.empty_like(pm)

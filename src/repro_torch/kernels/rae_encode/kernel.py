@@ -4,7 +4,8 @@ Replaces the TPU kernel ``rae_encode_pallas``
 (``src/repro/kernels/rae_encode/kernel.py``); the source file says how it
 is laid out and what bounds it. The wrapper checks what the kernel takes,
 allocates the output, launches on PyTorch's current stream and raises if
-the launch was refused.
+the launch was refused. It also allocates the scratch in which the
+kernel's first pass lays out W_e's TF32 parts.
 """
 from __future__ import annotations
 
@@ -23,10 +24,11 @@ MAX_OUT_DIM = 512
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rae_encode")
-    lib.rae_encode_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.rae_encode_launch.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rae_encode_launch.argtypes = [p, p, p, i, i, i, i, p, p]
+    lib.rae_encode_launch.restype = i
+    lib.rae_encode_scratch_bytes.argtypes = [i, i]
+    lib.rae_encode_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -53,10 +55,15 @@ def rae_encode_cuda(x: torch.Tensor, w_e: torch.Tensor,
                          f"(a block owns whole output rows), got m={m}")
     if n < 1 or rows >= 2 ** 31:
         raise ValueError(f"rae_encode_cuda shapes out of range: {rows}x{n}")
+    lib = _lib()
     z = torch.empty((rows, m), device=x.device, dtype=torch.float32)
+    # W_e's TF32 big and small parts, laid out for the tensor cores
+    scratch = torch.empty(lib.rae_encode_scratch_bytes(n, m),
+                          device=x.device, dtype=torch.uint8)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib().rae_encode_launch(x.data_ptr(), w_e.data_ptr(), z.data_ptr(),
-                                   rows, n, m, int(normalize), stream)
+    err = lib.rae_encode_launch(x.data_ptr(), w_e.data_ptr(), z.data_ptr(),
+                                rows, n, m, int(normalize), scratch.data_ptr(),
+                                stream)
     if err != 0:
         raise RuntimeError(f"rae_encode kernel launch failed (cuda error "
                            f"{err})")

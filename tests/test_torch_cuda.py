@@ -9,7 +9,8 @@ first use) and skips without one. The file imports only torch, numpy and
 Tolerances: on integer-valued inputs every product and sum is exact in
 float32, so kernel and plain version must agree bit for bit, ids and
 scores; on float inputs ids must be equal and values within 1e-4 of the
-largest magnitude (float32 sums in another order), except for the
+largest magnitude (float32 sums in another order; the encoder's 3xTF32
+products on the tensor cores, about 6e-6 off), except for the
 ``graph_beam`` hop, whose kernel sums in its plain version's order and
 must agree bit for bit on every input. The ``topk_merge`` kernel orders
 by the plain version's keys and must agree with it bit for bit too, and
@@ -98,6 +99,74 @@ def test_rae_encode_kernel_integer_inputs_bit_equal():
     x, w = _ints(1, (333, 200)).cuda(), _ints(2, (200, 64), -2, 3).cuda()
     z = rae_encode_cuda(x, w, False)
     assert torch.equal(z, rae_encode_ref(x, w, False))
+
+
+def _offset_view(t):
+    """The same values, contiguous, one element past a 16-byte boundary: the
+    kernels' scalar-load variants."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# rae_encode's in-kernel variants: each block-tile tier (m <= 64, 128, 256,
+# 512), the 16-byte ring (n, m multiples of 4) and the scalar loads (n = 1,
+# 129; m = 1), a contraction that ends mid-slice (770), 333 rows (no
+# multiple of any row tile)
+@needs_card
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("m", [1, 8, 100, 512])
+@pytest.mark.parametrize("n", [1, 129, 770])
+def test_rae_encode_kernel_every_tier_and_ragged_contraction(n, m, normalize):
+    x = _normal(n, (333, n)).cuda()
+    w = _normal(m, (n, m), n ** -0.5).cuda()
+    z = rae_encode_cuda(x, w, normalize)
+    torch.cuda.synchronize()
+    _close(z, rae_encode_ref(x, w, normalize))
+
+
+# the tensor-memory-accelerator / wgmma path (m <= 64, n and m multiples of
+# 4, aligned rows): a contraction that ends mid-slice (4, 132), outputs
+# narrower than its 64 columns, 333 rows (no multiple of its 128)
+@needs_card
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("m", [4, 8, 60, 64])
+@pytest.mark.parametrize("n", [4, 132, 768])
+def test_rae_encode_kernel_tensor_map_path(n, m, normalize):
+    x = _normal(n + 1, (333, n)).cuda()
+    w = _normal(m + 1, (n, m), n ** -0.5).cuda()
+    z = rae_encode_cuda(x, w, normalize)
+    torch.cuda.synchronize()
+    _close(z, rae_encode_ref(x, w, normalize))
+
+
+@needs_card
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("shape", [(4096, 768, 64), (333, 128, 100),
+                                   (45, 64, 512)])
+def test_rae_encode_kernel_unaligned_rows(shape, normalize):
+    rows, n, m = shape
+    x = _offset_view(_normal(4, (rows, n)).cuda())
+    w = _normal(5, (n, m), n ** -0.5).cuda()
+    z = rae_encode_cuda(x, w, normalize)
+    torch.cuda.synchronize()
+    _close(z, rae_encode_ref(x, w, normalize))
+    _close(rae_encode_cuda(x, _offset_view(w), normalize),
+           rae_encode_ref(x, w, normalize))
+
+
+@needs_card
+@pytest.mark.parametrize("shape", [(333, 129, 64), (130, 770, 100),
+                                   (77, 64, 512), (5, 1, 1), (333, 132, 60)])
+def test_rae_encode_kernel_integer_inputs_bit_equal_every_variant(shape):
+    rows, n, m = shape
+    x, w = _ints(6, (rows, n)).cuda(), _ints(7, (n, m), -2, 3).cuda()
+    assert torch.equal(rae_encode_cuda(x, w, False),
+                       rae_encode_ref(x, w, False))
+    assert torch.equal(rae_encode_cuda(_offset_view(x), w, False),
+                       rae_encode_ref(x, w, False))
 
 
 @needs_card
@@ -616,6 +685,39 @@ def test_flash_decode_kernel_matches_plain(b, kh, g, dh, s, cur, dtype):
     _close_decode(got, flash_decode_ref(q, k, v, cl))
     if cur <= 0:
         assert torch.all(got == 0)
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kh,g,dh,s,cur", [
+    (2, 8, 4, 64, 4096, 3001), (1, 2, 3, 128, 300, 299),
+    (1, 1, 32, 128, 260, 200), (2, 2, 2, 6, 40, 33), (2, 1, 2, 1, 33, 20)])
+def test_flash_decode_kernel_unaligned_caches(b, kh, g, dh, s, cur, dtype):
+    """Caches one element past a 16-byte boundary take the scalar variant."""
+    q, k, v = _decode_case(b, kh, g, dh, s, dtype, seed=1)
+    k, v = _offset_view(k), _offset_view(v)
+    cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    got = flash_decode_cuda(q, k, v, cl)
+    torch.cuda.synchronize()
+    _close_decode(got, flash_decode_ref(q, k, v, cl))
+
+
+@needs_card
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_splits_end_at_the_live_length(dtype):
+    """The live length one before, at and one past a split's end, and in
+    the middle of a tile of the third split."""
+    from repro_torch.kernels.flash_decode.kernel import TILE, split_plan
+
+    b, kh, g, dh, s = 1, 8, 4, 64, 20000
+    split, nsplit = split_plan(b, kh, s, TILE)
+    assert nsplit >= 3
+    q, k, v = _decode_case(b, kh, g, dh, s, dtype, seed=2)
+    for cur in (split - 1, split, split + 1, 2 * split + 37):
+        cl = torch.tensor(cur, dtype=torch.int32, device="cuda")
+        got = flash_decode_cuda(q, k, v, cl)
+        torch.cuda.synchronize()
+        _close_decode(got, flash_decode_ref(q, k, v, cl))
 
 
 @needs_card
