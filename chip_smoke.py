@@ -8,7 +8,8 @@ the corpus and the queries (the hand-written ``rae_encode`` kernel), scan
 the reduced corpus for the stage-1 top-k (the hand-written ``l2_topk``
 kernel), rerank exactly in the full space. ``RAE64,HNSW32,Rerank4``: fit,
 encode, build the graph over the reduced corpus on the host, traverse it
-on the card one hand-written ``graph_beam`` hop a step, rerank.
+on the card in one launch of the hand-written traversal kernel (a block a
+query, built on the ``graph_beam`` hop's device code), rerank.
 ``RAE64,Shard8,IVF256,Rerank4``: fit, encode, partition the reduced corpus
 into 8 shards of contiguous rows, build an IVF256 child per shard, fan the
 probe scans out on a thread pool, merge the ``[Q, k1 * 8]`` candidates
@@ -23,7 +24,9 @@ two-tower-retrieval (the user tower's history bag through the hand-written
 attention is the hand-written ``flash_decode`` kernel over the KV cache).
 Phases:
 
-1. kernels against their plain PyTorch versions on the card;
+1. kernels against their plain PyTorch versions on the card (the scan at
+   every k up to ``max_k()`` on ragged, unaligned, tied and integer
+   inputs; the one-launch traversal against the loop of plain hops);
 2. acceptance at the reference's bars on the 20k x 256 corpus: recall@10
    >= 0.9 for the Flat and IVF256 stacks, the Shard8 IVF256 stack within
    0.01 of its twin, ``RAE64,IVF256,PQ8x8,Rerank4`` >= 0.85 at <= 1/8 the
@@ -32,12 +35,17 @@ Phases:
 3. full size: the paper's 768-d ``imdb_like`` corpus at 1M rows and its
    3000-step schedule, 1024 queries in batches of 256, the kernel path's
    ids against the plain path's, and each kernel's time beside its bound,
-   its plain version's and the PyTorch library call's;
+   its plain version's and the PyTorch library call's (the scan also at
+   k = 2048, the top rung of ``rerank_k1``, with its launches in such a
+   search);
 4. the graph stack on the 20k x 256 acceptance corpus (the graph is built
    on the host, which bounds the size: see ``PERF.md``): recall@10 >= 0.9
-   and distance evals < 10% of N, reload identical, the kernel-hop
-   traversal against the plain-hop traversal, 1024 noisy queries in
-   batches of 256 and one at a time; and the hop kernel's time at N = 1M;
+   and distance evals < 10% of N, reload identical, the one-launch
+   traversal against the plain-hop loop on all 1024 noisy queries (ids,
+   scores, evals, hops equal) and each stage-1 answer alone against its
+   batch row, 1024 noisy queries in batches of 256 and one at a time, the
+   card's idle share; the traversal's time a batch beside its bound and
+   the plain-hop loop's, and the hop kernel's time at N = 1M;
 5. the sharded stack at full width: ``imdb_like`` at 1,000,003 rows (prime,
    so every shard split is ragged) and 1024 queries, one 3000-step fit
    shared by ``RAE64,IVF256,Rerank4`` (the unsharded twin) and
@@ -72,10 +80,11 @@ Phases:
    and the decode kernel's time at both cells' shapes.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
-times ``rae_encode``, ``flash_decode`` and the llama decode steps with the
-port in ``PARENT/src`` (a ``git archive`` of the parent commit) and with
-this tree's, in turns (parent, change, change, parent), each in a process
-of its own, on one card.
+times ``l2_topk`` (k = 40 and 2048), a phase-4-shaped graph search (a
+256-query batch and one query), ``rae_encode``, ``flash_decode`` and the
+llama decode steps with the port in ``PARENT/src`` (a ``git archive`` of
+the parent commit) and with this tree's, in turns (parent, change, change,
+parent), each in a process of its own, on one card.
 
 Every launch counter is set to 0 just before phases 3 to 8 drive their
 paths and read just after; a kernel of the path that did not launch fails
@@ -252,6 +261,7 @@ def rel_to_max(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 # ---------------------------------------------------------------------------
 def phase_kernels(g: torch.Generator) -> dict[str, float]:
     from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.kernels.l2_topk.kernel import max_k
     from repro_torch.kernels.l2_topk.ref import l2_topk_ref
     from repro_torch.kernels.rae_encode import rae_encode
     from repro_torch.kernels.rae_encode.ref import rae_encode_ref
@@ -276,7 +286,7 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
     q = torch.randn(nq, d, device="cuda", generator=g)
     db = torch.randn(n, d, device="cuda", generator=g)
     mask = torch.rand(n, device="cuda", generator=g) > 0.25
-    for k in (1, 10, 40, 2048):
+    for k in (1, 10, 40, 64, 2048, max_k()):
         for metric in ("euclidean", "cosine"):
             for db_mask in (None, mask):
                 v, i = l2_topk(q, db, k, metric=metric, db_mask=db_mask)
@@ -295,13 +305,142 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
                     dead = torch.nonzero(~mask).flatten().to(torch.int32)
                     check(not torch.isin(i, dead).any().item(),
                           "a tombstoned row surfaced")
-    errs["graph_beam"] = phase_kernels_graph_beam(g)
+    errs["l2_topk"] = max(errs["l2_topk"], phase_kernels_l2_topk_shapes(g))
+    errs["graph_beam"] = max(phase_kernels_graph_beam(g),
+                             phase_kernels_traversal())
     errs["topk_merge"] = phase_kernels_topk_merge(g)
     errs["pq_adc"] = phase_kernels_pq_adc(g)
     errs["graph_beam_q"] = phase_kernels_graph_beam_q(g)
     errs["embedding_bag"] = phase_kernels_embedding_bag(g)
     errs["flash_decode"] = phase_kernels_flash_decode(g)
     return errs
+
+
+L2_TOPK_KS = (1, 10, 40, 64, 2048)
+
+
+def phase_kernels_l2_topk_shapes(g: torch.Generator) -> float:
+    """The scan at every k (its lists in shared memory up to k = 64, in
+    device memory above; a pilot over every 16th row when that sample holds
+    2k rows) on ragged Q and N, slices that end mid-way (d = 24, and d = 7
+    with the 4-byte copies), rows off a 16-byte boundary; then every score
+    equal (zero vectors, one row repeated) and a {-1, 0, 1} corpus, where
+    kernel and plain version must agree bit for bit."""
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda, max_k
+    from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref, prepare
+
+    worst, cases = 0.0, 0
+    for nq, n, d in ((1, 4999, 64), (65, 70_001, 64), (130, 3001, 24),
+                     (64, 100, 7)):
+        q, db, d_sq = prepare(torch.randn(nq, d, device="cuda", generator=g),
+                              torch.randn(n, d, device="cuda", generator=g),
+                              "euclidean", None)
+        for k in L2_TOPK_KS + (max_k(),):
+            v, i = l2_topk_scan_cuda(q, db, d_sq, k)
+            v2, i2 = l2_topk_scan_cuda(offset_view(q), offset_view(db), d_sq,
+                                       k)
+            sync()
+            # one query is scored inside a batch of 64 zero rows: cuBLAS
+            # sums a one-row product in another order than a batch's
+            qp = torch.cat([q, torch.zeros(63 if nq == 1 else 0, d,
+                                           device="cuda")])
+            vr, ir = (t[:nq] for t in l2_topk_scan_ref(qp, db, d_sq, k))
+            err, rel = max_rel_err(v, vr)
+            worst = max(worst, err)
+            cases += 1
+            check(torch.equal(i, ir), f"l2_topk ids Q={nq} N={n} d={d} k={k}")
+            check(rel <= SCORE_TOL, f"l2_topk scores Q={nq} N={n} k={k}")
+            check(torch.equal(i2, i) and torch.equal(v2, v),
+                  f"l2_topk unaligned rows Q={nq} N={n} d={d} k={k}")
+    nq, n, d = 70, 9001, 16
+    for kind in ("zeros", "one_row", "ints"):
+        if kind == "zeros":
+            q, db = (torch.zeros(nq, d, device="cuda"),
+                     torch.zeros(n, d, device="cuda"))
+        elif kind == "one_row":
+            q = torch.randn(nq, d, device="cuda", generator=g)
+            db = torch.randn(1, d, device="cuda", generator=g).repeat(n, 1)
+        else:
+            q, db = (torch.randint(-1, 2, (m, d), device="cuda",
+                                   generator=g).float() for m in (nq, n))
+        q, db, d_sq = prepare(q, db, "euclidean", None)
+        for k in L2_TOPK_KS + (max_k(),):
+            v, i = l2_topk_scan_cuda(q, db, d_sq, k)
+            sync()
+            vr, ir = l2_topk_scan_ref(q, db, d_sq, k)
+            cases += 1
+            check(torch.equal(i, ir) and torch.equal(v, vr),
+                  f"l2_topk {kind} corpus k={k}: not bit-equal")
+    log(f"phase 1: l2_topk {cases} more cases (Q, N, d in (1, 4999, 64), "
+        f"(65, 70001, 64), (130, 3001, 24), (64, 100, 7), aligned and "
+        f"unaligned rows; every score tied and a {{-1, 0, 1}} corpus at "
+        f"70 x 9001 x 16, bit-equal; k in {L2_TOPK_KS + (max_k(),)}): ids "
+        f"equal, max_abs_err {worst:.3e}")
+    return worst
+
+
+def phase_kernels_traversal() -> float:
+    """The one-launch traversal against the loop of plain hops on a
+    2,000-node graph (d = 64, M = 8, built on the host), 128 noisy queries:
+    ef in (10, 80, 4096), with and without tombstones, the visited bits in
+    shared memory and in a device matrix; ids, scores, evals and hops
+    equal, and each row's own hops equal to the per-query plain model's.
+    Returns 0 (bit-equal)."""
+    from repro_torch.kernels.graph_beam import kernel as gk
+    from repro_torch.kernels.graph_beam.ref import (graph_beam_ref,
+                                                    graph_traverse_ref,
+                                                    pairwise_sum)
+    from repro_torch.search import hnsw
+
+    rng = np.random.default_rng(3)
+    centers = rng.normal(size=(8, 64)) * 3
+    x = (centers[rng.integers(0, 8, 2000)]
+         + rng.normal(size=(2000, 64))).astype(np.float32)
+    graph = hnsw.build(x, M=8, ef_construction=40, seed=0)
+    qn = (x[rng.integers(0, 2000, 128)]
+          + 0.05 * rng.normal(size=(128, 64))).astype(np.float32)
+    smem_max = gk.SMEM_VISITED_MAX_N
+    cases = 0
+    try:
+        for ef in (10, 80, 4096):
+            for tomb in (False, True):
+                alive = None
+                if tomb:
+                    alive = rng.random(2000) > 0.3
+                    alive[graph.entry] = True
+                want = hnsw.search_batched(graph, qn, 10, ef_search=ef,
+                                           device="cuda", alive=alive,
+                                           hop=graph_beam_ref)
+                for limit in (smem_max, 0):
+                    gk.SMEM_VISITED_MAX_N = limit
+                    got = hnsw.search_batched(graph, qn, 10, ef_search=ef,
+                                              device="cuda", alive=alive)
+                    sync()
+                    cases += 1
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(got[:3], want[:3])) and got[3] == want[3],
+                          f"traversal kernel ef={ef} tombstones={tomb} "
+                          f"visited in shared memory={limit > 0}: differs "
+                          f"from the plain-hop loop")
+        gk.SMEM_VISITED_MAX_N = smem_max
+        vecs, vsq, nbrs0, upper = graph.pack().device_arrays(
+            graph.vecs, torch.device("cuda"))
+        qt = torch.as_tensor(qn[:16], device="cuda")
+        kern = gk.graph_traverse_cuda(qt, vecs, vsq, pairwise_sum(qt * qt),
+                                      nbrs0, upper, graph.entry, 80)
+        plain = graph_traverse_ref(*(t.cpu() for t in (
+            qt, vecs, vsq, pairwise_sum(qt * qt), nbrs0, upper)),
+            graph.entry, 80)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(kern, plain)),
+              "traversal kernel differs from the per-query plain model")
+    finally:
+        gk.SMEM_VISITED_MAX_N = smem_max
+    log(f"phase 1: graph traversal, one launch a search, {cases} cases "
+        f"(N=2000 d=64 M=8, 128 queries, ef in (10, 80, 4096), tombstones "
+        f"or not, visited bits in shared or device memory) == the plain-hop "
+        f"loop: ids, scores, evals, hops equal; 16 rows == the per-query "
+        f"plain model, each row's hops included")
+    return 0.0
 
 
 def offset_view(t: torch.Tensor) -> torch.Tensor:
@@ -885,7 +1024,7 @@ def phase_full(n: int, n_queries: int, batch: int, steps: int,
         f"exact ground truth {t_gt:.2f} s")
     check(same == 1280, "kernel path ids differ from the plain path's")
     return {"idx": idx, "qb": qb, "zq": zq, "k1": k1, "launches": launches,
-            "recall": recall}
+            "recall": recall, "queries": queries}
 
 
 def kernel_times(full: dict) -> list[dict]:
@@ -930,12 +1069,31 @@ def kernel_times(full: dict) -> list[dict]:
         f"{scan_ms:.4f} ms, plain {scan_plain:.4f} ms, torch.matmul + "
         f"torch.topk {scan_lib:.4f} ms, bound {scan_bound:.4f} ms "
         f"({scan_by})")
-    top = 2048  # the top rung of rerank_k1 (KNOB_LADDER)
+    # the top rung of rerank_k1 (KNOB_LADDER), through the API: a search
+    # with SearchParams(rerank_k1=2048) launches the scan once at k = 2048
+    from repro_torch.api.index import SearchParams
+
+    top = 2048
+    l2_topk_scan_cuda.launches = 0
+    res = idx.search(full["queries"][:nq], 10,
+                     params=SearchParams(rerank_k1=top))
+    top_launches = l2_topk_scan_cuda.launches
+    check(top_launches == 1 and res.indices.shape == (nq, 10),
+          f"a rerank_k1={top} search launched l2_topk {top_launches} times")
+    v, i = l2_topk_scan_cuda(q, d, d_sq, top)
+    vr, ir = l2_topk_scan_ref(q, d, d_sq, top)
+    check(torch.equal(i, ir) and max_rel_err(v, vr)[1] <= SCORE_TOL,
+          f"l2_topk k={top} at full size differs from the plain version")
+    top_ms = cuda_ms(lambda: l2_topk_scan_cuda(q, d, d_sq, top), reps=10)
+    top_lib = cuda_ms(lambda: torch.topk(2.0 * (q @ d.T) - d_sq, top),
+                      reps=10)
+    top_bound, top_by = bound(
+        4.0 * (nq * dim + nrow * dim + nrow) + 8.0 * nq * top,
+        2.0 * nq * nrow * dim + 2.0 * nq * nrow)
     log(f"phase 3: l2_topk Q={nq} N={nrow} d={dim} k={top}: kernel "
-        f"{cuda_ms(lambda: l2_topk_scan_cuda(q, d, d_sq, top), reps=5):.4f}"
-        f" ms, torch.matmul + torch.topk "
-        f"{cuda_ms(lambda: torch.topk(2.0 * (q @ d.T) - d_sq, top), reps=5):.4f}"
-        f" ms")
+        f"{top_ms:.4f} ms, torch.matmul + torch.topk {top_lib:.4f} ms, "
+        f"bound {top_bound:.4f} ms ({top_by}); launches in a "
+        f"rerank_k1={top} search: {top_launches}; ids == plain ids")
     launches = full["launches"]["total"]
     return [
         {"name": "rae_encode", "route": "cuda",
@@ -949,7 +1107,10 @@ def kernel_times(full: dict) -> list[dict]:
          "replaces": "src/repro/kernels/l2_topk/kernel.py:82",
          "launches": launches["l2_topk"], "ms": scan_ms,
          "plain_ms": scan_plain, "bound_ms": scan_bound, "bound_by": scan_by,
-         "library_ms": scan_lib},
+         "library_ms": scan_lib,
+         "k2048": {"launches": top_launches, "ms": top_ms,
+                   "bound_ms": top_bound, "bound_by": top_by,
+                   "library_ms": top_lib}},
     ]
 
 
@@ -964,12 +1125,14 @@ def noisy_queries(corpus: np.ndarray, n: int, seed: int) -> np.ndarray:
         (n, corpus.shape[1])).astype(np.float32)
 
 
-def phase_graph(device: str, steps: int = 1000, batch: int = 256
-                ) -> dict[str, int]:
-    """Drive the graph stack; returns the main path's launch counts."""
+def phase_graph(device: str, steps: int = 1000, batch: int = 256) -> dict:
+    """Drive the graph stack; returns the main path's launch counts and
+    what the traversal's timing needs (the graph, a reduced batch, k1,
+    ef)."""
     from repro_torch import api
     from repro_torch.core import metrics
-    from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda
+    from repro_torch.kernels.graph_beam.kernel import (graph_beam_cuda,
+                                                       graph_traverse_cuda)
     from repro_torch.kernels.graph_beam.ref import graph_beam_ref
     from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
@@ -977,7 +1140,8 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
     from repro_torch.search.twostage import rerank_candidates
 
     counters = {"rae_encode": rae_encode_cuda, "l2_topk": l2_topk_scan_cuda,
-                "graph_beam": graph_beam_cuda}
+                "graph_beam": graph_beam_cuda,
+                "graph_traverse": graph_traverse_cuda}
     corpus, queries = acceptance_data()
     noisy = noisy_queries(corpus, 1024, seed=2)
     n = corpus.shape[0]
@@ -999,16 +1163,21 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
     res = idx.search(queries, 10)
     batches, per_batch = [], []
     for s in range(0, len(noisy), batch):
-        before = graph_beam_cuda.launches
+        before = graph_traverse_cuda.launches
         r = idx.search(noisy[s:s + batch], 10)
         batches.append(r)
         per_batch.append((r.latency_s, r.stats["beam_hops"],
-                          graph_beam_cuda.launches - before))
+                          graph_traverse_cuda.launches - before))
     singles = [idx.search(noisy[i:i + 1], 10) for i in range(len(noisy))]
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"phase 4: main-path launches {launches}")
-    check(launches["rae_encode"] > 0 and launches["graph_beam"] > 0,
+    check(launches["rae_encode"] > 0 and launches["graph_traverse"] > 0,
           f"a kernel of the graph path never launched: {launches}")
+    check(all(p[2] == 1 for p in per_batch)
+          and launches["graph_traverse"] == len(per_batch) + len(noisy) + 1
+          and launches["graph_beam"] == 0,
+          f"a graph search is not one traversal launch: {per_batch}, "
+          f"{launches}")
 
     gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
                              torch.as_tensor(corpus, device=device), 10)
@@ -1055,6 +1224,22 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
         f"{plain[3]}")
     check(agree >= 0.99 * nn, f"kernel and plain traversals agree for "
                               f"only {agree}/{nn} queries")
+    # the one-launch traversal is the plain-hop loop, row for row
+    check(all(torch.equal(a, b) for a, b in zip(kern[:3], plain[:3]))
+          and kern[3] == plain[3],
+          "the traversal kernel's ids, scores, evals or hops differ from "
+          "the plain-hop loop's")
+    # every stage-1 answer alone == the same row of the batch
+    alone = 0
+    for i in range(nn):
+        one = hnsw.search_batched(g, zq[i:i + 1], k1, ef_search=ef,
+                                  device=device)
+        alone += all(torch.equal(a[0], b[i])
+                     for a, b in zip(one[:3], kern[:3]))
+    log(f"phase 4: stage-1 answers alone == in the {nn}-query batch (ids, "
+        f"scores, evals) for {alone}/{nn} queries")
+    check(alone == nn, f"only {alone}/{nn} stage-1 answers alone equal "
+                       f"their batch rows")
 
     # layers of one batch, each timed on its own
     qb = torch.as_tensor(noisy[:batch], device=device)
@@ -1063,11 +1248,11 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
     zb = idx.reducer.transform(qb)
     sync()
     t_encode = time.perf_counter() - t0
-    before = graph_beam_cuda.launches
+    before = graph_traverse_cuda.launches
     t0 = time.perf_counter()
     s1 = idx.base.search(zb, k1)
     t_stage1 = time.perf_counter() - t0
-    hop_launches = graph_beam_cuda.launches - before
+    hop_launches = graph_traverse_cuda.launches - before
     cand = torch.as_tensor(s1.indices, device=device)
     sync()
     t0 = time.perf_counter()
@@ -1079,7 +1264,9 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
     sync()
     t_corpus_encode = time.perf_counter() - t0
     wall_ms, busy, hop_ms = device_busy_share(
-        lambda: idx.search(noisy[:batch], 10), "graph_beam")
+        lambda: idx.search(noisy[:batch], 10), "graph_traverse")
+    wall1_ms, busy1, _ = device_busy_share(
+        lambda: idx.search(noisy[:1], 10), "graph_traverse")
     lat1 = [r.latency_s for r in singles]
     hops1 = [r.stats["beam_hops"] for r in singles]
     log(f"phase 4: build: fit {t_fit:.2f} s ({steps} steps), encode + graph "
@@ -1096,15 +1283,27 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
         f"ms, layer-0 hops median {float(np.median(hops1)):.0f}")
     log(f"phase 4: one batch's layers: encode {t_encode * 1e3:.3f} ms, "
         f"stage-1 traversal {s1.latency_s * 1e3:.3f} ms ({hop_launches} "
-        f"graph_beam launches, {s1.stats['beam_hops']:.0f} layer-0 hops, "
-        f"{s1.latency_s * 1e3 / max(hop_launches, 1):.4f} ms a launch), "
-        f"rerank {t_rerank * 1e3:.3f} ms")
+        f"graph_traverse launch, {s1.stats['beam_hops']:.0f} layer-0 hops "
+        f"at most a row), rerank {t_rerank * 1e3:.3f} ms")
     log(f"phase 4: one {batch}-query search under torch.profiler: wall "
         f"{wall_ms:.3f} ms, card busy {busy:.4f} of it (idle share "
-        f"{1.0 - busy:.4f}; 0 busy = no device event traced), graph_beam "
-        f"kernels {hop_ms:.4f} ms of device time")
+        f"{1.0 - busy:.4f}; 0 busy = no device event traced), "
+        f"graph_traverse kernel {hop_ms:.4f} ms of device time; one query: "
+        f"wall {wall1_ms:.3f} ms, idle share {1.0 - busy1:.4f}")
+    # the card's time a search from a trace of 20 (tracing stretches one
+    # search's wall several-fold), over the untraced median wall above
+    card_b = traced_device_ms(lambda: idx.search(noisy[:batch], 10), reps=20)
+    card_1 = traced_device_ms(lambda: idx.search(noisy[:1], 10), reps=20)
+    wall_b = float(np.median([p[0] for p in per_batch])) * 1e3
+    wall_1 = float(np.median(lat1)) * 1e3
+    log(f"phase 4: the card's time a search (trace of 20): {card_b:.4f} ms "
+        f"a {batch}-query batch, {card_1:.4f} ms a query; over the untraced "
+        f"median wall ({wall_b:.3f} ms, {wall_1:.3f} ms): idle share "
+        f"{1.0 - card_b / wall_b:.4f} a batch, {1.0 - card_1 / wall_1:.4f} "
+        f"a query")
     GRAPH_TWIN.update(idx=idx, res=res, recall=recall)
-    return launches
+    return {"launches": launches, "graph": g, "zb": zb, "k1": k1,
+            "ef": ef}
 
 
 #: phase 4's f32 graph stack and its 64-query answer, the twin phase 6
@@ -1112,7 +1311,55 @@ def phase_graph(device: str, steps: int = 1000, batch: int = 256
 GRAPH_TWIN: dict = {}
 
 
-def graph_beam_time(launches: int, g: torch.Generator) -> dict:
+def graph_beam_time(p4: dict, g: torch.Generator) -> dict:
+    """The ``graph_beam`` row: the traversal kernel (the main path's one
+    launch a search) on phase 4's graph and a 256-query batch of its
+    reduced queries, beside its bound (the rows its evals gather, the
+    neighbour rows its hops read, the beams), and the loop of plain hops
+    (its plain version) on the same batch; then, under ``hop``, the hop
+    kernel alone (``hop_time``)."""
+    from repro_torch.kernels.graph_beam.kernel import graph_traverse_cuda
+    from repro_torch.kernels.graph_beam.ref import (graph_beam_ref,
+                                                    pairwise_sum)
+    from repro_torch.search import hnsw
+
+    graph, zb, k1, ef = p4["graph"], p4["zb"], p4["k1"], p4["ef"]
+    vecs, vsq, nbrs0, upper = graph.pack().device_arrays(
+        graph.vecs, torch.device("cuda"))
+    zb = zb.float().contiguous()
+    q_sq = pairwise_sum(zb * zb)
+
+    def traverse():
+        return graph_traverse_cuda(zb, vecs, vsq, q_sq, nbrs0, upper,
+                                   graph.entry, ef)
+
+    ms, held = device_ms(traverse, reps=20)
+    _, _, evals, hops = traverse()
+    plain = cuda_ms(lambda: hnsw.search_batched(
+        graph, zb, k1, ef_search=ef, device="cuda", hop=graph_beam_ref),
+        reps=3, warmup=1)
+    nq, d = zb.shape
+    b_ms, b_by = bound(float(evals.sum()) * (4.0 * d + 4.0)
+                       + float(hops.sum()) * 4.0 * nbrs0.shape[1]
+                       + 4.0 * nq * d + 8.0 * nq * ef,
+                       float(evals.sum()) * 2.0 * d)
+    log(f"phase 4: graph traversal Q={nq} N={vecs.shape[0]} d={d} "
+        f"W={nbrs0.shape[1]} ef={ef} (device time, card held busy while "
+        f"enqueuing: {held}): kernel {ms:.4f} ms a batch (one launch; "
+        f"{int(hops.max())} layer-0 hops at most a row, "
+        f"{float(evals.sum()) / nq:.1f} evals a query), plain-hop loop "
+        f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "graph_beam", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/graph_beam.cu",
+            "replaces": "src/repro/kernels/graph_beam/kernel.py:65",
+            "launches": p4["launches"]["graph_traverse"], "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "kernel": "graph_traverse_kernel: a search, one launch",
+            "hop": hop_time(p4["launches"]["graph_beam"], g)}
+
+
+def hop_time(launches: int, g: torch.Generator) -> dict:
     """The hop kernel at the graph path's batch shape (Q=256, d=64, W=64 =
     2M at M=32, ef=80) over a 1M-row corpus, all slots valid: its time
     beside its bound, its plain version's and the PyTorch composite's. The
@@ -1162,10 +1409,7 @@ def graph_beam_time(launches: int, g: torch.Generator) -> dict:
         f"{held_l}): kernel {ms:.4f} ms, plain {plain:.4f} ms, gather + "
         f"einsum + torch.topk {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
         f"one call from the host, back to back, {per_call:.4f} ms")
-    return {"name": "graph_beam", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/graph_beam.cu",
-            "replaces": "src/repro/kernels/graph_beam/kernel.py:65",
-            "launches": launches, "ms": ms, "plain_ms": plain,
+    return {"launches": launches, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
@@ -2349,20 +2593,80 @@ def flash_decode_time(state, cfg, name: str) -> dict:
             "library_ms": lib}
 
 
-def redesign_times(src: str) -> dict:
-    """``rae_encode`` and ``flash_decode`` (the kernels PR 17 redesigned)
-    and the decode steps around the latter, timed with the port whose
-    ``src`` directory is given (put first on the path, its kernels built
-    from its own sources): the encoder at [1M,768]@[768,64] with its
-    ``torch.matmul``; decode_32k (cut to B=32) and long_500k as phase 8
-    drives them, 8 greedy steps from a seeded cache, each step's wall time
-    and the card's time a step, then the decode kernel at the cell's shape
-    (``flash_decode_time``). One tree a process; ``--ab`` runs two trees
-    in turns."""
+#: The graph --ab times: phase 4's shape (20,000 x 64, M=32,
+#: ef_construction 100, 256 queries, ef 80, k1 40) over clustered points.
+AB_GRAPH = {"n": 20_000, "d": 64, "m": 32, "ef_construction": 100,
+            "queries": 256, "ef": 80, "k1": 40}
+
+
+def ab_graph(path: str) -> None:
+    """Build the ``AB_GRAPH`` graph once, on the host, with this tree's
+    port (the build is bitwise the reference's in both trees), and save it
+    with its noisy queries for the timing processes of both trees."""
+    from repro_torch.search import hnsw
+
+    c = AB_GRAPH
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(16, c["d"])) * 2
+    x = (centers[rng.integers(0, 16, c["n"])]
+         + rng.normal(size=(c["n"], c["d"]))).astype(np.float32)
+    q = (x[rng.integers(0, c["n"], c["queries"])]
+         + 0.05 * rng.normal(size=(c["queries"], c["d"]))).astype(np.float32)
+    g = hnsw.build(x, M=c["m"], ef_construction=c["ef_construction"], seed=0)
+    np.savez(path, vecs=g.vecs, levels=g.levels, links0=g.links0,
+             links=g.links, entry=g.entry, M=g.M, queries=q)
+
+
+def graph_times(graph_path: str) -> dict:
+    """The ``AB_GRAPH`` stage-1 traversal (``search_batched``) with this
+    process's port: wall ms of a 256-query batch (median of 5) and of one
+    query (median of 64), each ending in a sync, and the card's busy share
+    of a batch."""
+    from repro_torch.search import hnsw
+
+    z = np.load(graph_path)
+    graph = hnsw.HNSWGraph(vecs=z["vecs"], levels=z["levels"],
+                           links0=z["links0"], links=z["links"],
+                           entry=int(z["entry"]), M=int(z["M"]))
+    qb = torch.as_tensor(z["queries"], device="cuda")
+    k1, ef = AB_GRAPH["k1"], AB_GRAPH["ef"]
+
+    def search(q):
+        out = hnsw.search_batched(graph, q, k1, ef_search=ef, device="cuda")
+        sync()
+        return out
+
+    def wall(q, reps):
+        search(q)
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            search(q)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(lat))
+
+    single = [wall(qb[i:i + 1], 1) for i in range(64)]
+    _, busy, _ = device_busy_share(lambda: search(qb), "graph")
+    return {"batch_ms": wall(qb, 5), "single_ms": float(np.median(single)),
+            "batch_idle_share": 1.0 - busy,
+            "hops": search(qb)[3]}
+
+
+def redesign_times(src: str, graph_path: str) -> dict:
+    """The redesigned kernels and the graph search, timed with the port
+    whose ``src`` directory is given (put first on the path, its kernels
+    built from its own sources): ``l2_topk`` at the Flat path's shape (Q=256,
+    N=1M, d=64) at k = 40 and 2048 beside ``torch.matmul`` +
+    ``torch.topk``; the ``AB_GRAPH`` traversal (``graph_times``); the
+    encoder at [1M,768]@[768,64] with its ``torch.matmul``; decode_32k
+    (cut to B=32) and long_500k as phase 8 drives them, 8 greedy steps from
+    a seeded cache, each step's wall time and the card's time a step, then
+    the decode kernel at the cell's shape (``flash_decode_time``). One tree
+    a process; ``--ab`` runs two trees in turns."""
     sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels import _build
 
-    _build.build(("rae_encode", "flash_decode"))
+    _build.build(("rae_encode", "flash_decode", "l2_topk", "graph_beam"))
     import repro_torch
     from repro_torch.configs import get_shapes
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
@@ -2370,8 +2674,22 @@ def redesign_times(src: str) -> dict:
 
     check(os.path.abspath(repro_torch.__file__).startswith(
         os.path.abspath(src)), f"repro_torch imported from {src}")
+    from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+
     out: dict = {"src": src}
     g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(256, 64, device="cuda", generator=g)
+    d = torch.randn(1_000_000, 64, device="cuda", generator=g)
+    d_sq = (d * d).sum(1)
+    out["l2_topk"] = {}
+    for k in (40, 2048):
+        out["l2_topk"][str(k)] = {
+            "ms": cuda_ms(lambda: l2_topk_scan_cuda(q, d, d_sq, k), reps=10),
+            "library_ms": cuda_ms(
+                lambda: torch.topk(2.0 * (q @ d.T) - d_sq, k), reps=10)}
+    del q, d, d_sq
+    free_card()
+    out["graph"] = graph_times(graph_path)
     rows, n, m = 1_000_000, 768, 64
     x = torch.randn(rows, n, device="cuda", generator=g)
     w = torch.randn(n, m, device="cuda", generator=g) / n ** 0.5
@@ -2422,12 +2740,18 @@ def ab(parent_src: str) -> int:
     power limit."""
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     runs = []
+    tmp = tempfile.mkdtemp()
+    graph_path = os.path.join(tmp, "graph.npz")
+    t0 = time.perf_counter()
+    ab_graph(graph_path)
+    log(f"--ab graph {AB_GRAPH} built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
     for label, src in (("parent", parent_src), ("change", here),
                        ("change", here), ("parent", parent_src)):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--times", src], capture_output=True,
-                              text=True, timeout=900)
+                               "--times", src, "--graph", graph_path],
+                              capture_output=True, text=True, timeout=900)
         lines = proc.stdout.splitlines()
         for line in lines[:-1]:
             log(f"{label}: {line}")
@@ -2437,7 +2761,16 @@ def ab(parent_src: str) -> int:
         res = json.loads(lines[-1])
         res["label"] = label
         runs.append(res)
-        enc = res["rae_encode"]
+        enc, gr = res["rae_encode"], res["graph"]
+        log(f"{label} ({src}): l2_topk Q=256 N=1M d=64 "
+            + ", ".join(f"k={k} {v['ms']:.4f} ms (matmul + topk "
+                        f"{v['library_ms']:.4f})"
+                        for k, v in res["l2_topk"].items())
+            + f"; graph {AB_GRAPH['n']} x {AB_GRAPH['d']} M={AB_GRAPH['m']} "
+            f"ef={AB_GRAPH['ef']}: batch of {AB_GRAPH['queries']} "
+            f"{gr['batch_ms']:.3f} ms (idle share "
+            f"{gr['batch_idle_share']:.4f}, {gr['hops']} hops), one query "
+            f"{gr['single_ms']:.3f} ms")
         log(f"{label} ({src}, {time.perf_counter() - t0:.1f} s): rae_encode "
             f"{enc['ms']:.4f} ms (torch.matmul {enc['library_ms']:.4f}, "
             f"bound {enc['bound_ms']:.4f}, err {enc['rel_err']:.2e}); "
@@ -2449,6 +2782,8 @@ def ab(parent_src: str) -> int:
                 f"{res[c]['step_median_ms']:.3f} ms, card "
                 f"{res[c]['card_ms_a_step']:.3f} ms a step"
                 for c in ("decode_32k", "long_500k")))
+    os.unlink(graph_path)
+    os.rmdir(tmp)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2497,8 +2832,7 @@ def main() -> int:
         return kernel_times(full)
 
     def graph():
-        launches = phase_graph("cuda")
-        return graph_beam_time(launches["graph_beam"], g)
+        return graph_beam_time(phase_graph("cuda"), g)
 
     def sharded():
         merge = phase_sharded(n=1_000_003, n_queries=1024, batch=256,
@@ -2558,17 +2892,19 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="PARENT_SRC",
-                    help="time rae_encode, flash_decode and the decode "
-                         "steps with the parent tree's src directory and "
-                         "this one's, in turns, and run nothing else")
+                    help="time l2_topk, the graph traversal, rae_encode, "
+                         "flash_decode and the decode steps with the parent "
+                         "tree's src directory and this one's, in turns, "
+                         "and run nothing else")
     ap.add_argument("--times", metavar="SRC", help=argparse.SUPPRESS)
+    ap.add_argument("--graph", metavar="NPZ", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         return main()              # refuses without a card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     if args.times:
-        print(json.dumps(redesign_times(args.times)))
+        print(json.dumps(redesign_times(args.times, args.graph)))
         return 0
     if args.ab:
         return ab(args.ab)

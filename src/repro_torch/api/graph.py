@@ -11,8 +11,11 @@ The port of the reference's ``api/graph.py``::
 graph) and uploads the packed adjacency to ``device``. ``search`` routes
 queries to one of two engines:
 
-* the batched traversal (:func:`~repro_torch.search.hnsw.search_batched`):
-  one ``graph_beam`` hop a step for the whole batch, on ``device``;
+* the batched traversal (:func:`~repro_torch.search.hnsw.search_batched`),
+  on ``device``: on the card one launch of the traversal kernel for the
+  whole batch (a block a query, the beam and the visited bits in shared
+  memory, no host sync until the answer), on the CPU one ``graph_beam``
+  hop a step for the whole batch;
 * the sequential heapq beam (:func:`~repro_torch.search.hnsw.search`), on
   the host.
 

@@ -1,9 +1,9 @@
 // Fused L2 scan + exact top-k for Hopper (sm_90a).
 //
 // For each query q and corpus row j: score = 2 q.d_j - dsq_j (float32, one
-// fmaf per term in increasing dimension order; dsq_j = |d_j|^2, or a large
-// penalty for rows that must never win, is computed once per corpus by the
-// caller). Returns, per query, the k best pairs of the multiset
+// fmaf per term in increasing dimension order from 0; dsq_j = |d_j|^2, or a
+// large penalty for rows that must never win, is computed once per corpus by
+// the caller). Returns, per query, the k best pairs of the multiset
 //   {(score_j, j) : j < N}  U  {k copies of (NEG_INF, -1)}
 // under the total order (score descending, id ascending). The k pad pairs
 // give k > N its (NEG_INF, -1) tail, and make a penalised row (score about
@@ -11,315 +11,893 @@
 //
 // Replaces the TPU kernel l2_topk_pallas (src/repro/kernels/l2_topk/
 // kernel.py), whose per-tile k sweeps of max/argmax/mask carry a running
-// top-k across a sequential grid. Blocks on the card run in parallel, so:
-//   pass 1: block (query tile, corpus chunk) scores its chunk tile by tile
-//           and keeps, per query, a candidate buffer in shared memory with a
-//           threshold (the current k-th best pair). A score that beats the
-//           threshold is appended; when a buffer could overflow on the next
-//           tile, all buffers of the block are bitonic-sorted, cut to k, and
-//           the thresholds rise. Each (query, chunk) writes its k best.
-//   pass 2: one block per query merges the chunk lists with the same
-//           buffered selection (skipped when there is a single chunk).
+// top-k across a sequential grid. Blocks on the card run in parallel, and
+// the scan and the selection want different things of them, so the two are
+// kept apart:
+//   scan:   block = (64-query tile, chunk of rows), one block an SM. The
+//           64 x 256 score tile of a step is a register tile of 8 queries x
+//           8 rows a thread; the query and row slices (32 dimensions) come
+//           into a 3-stage shared-memory ring by cp.async, so the next
+//           slices load while the FMAs run, and are read as 16-byte words
+//           (a row slice padded to 36 floats: conflict-free). 16 shared
+//           loads feed 256 FMAs. With 64 queries a block the corpus is read
+//           from device memory ceil(Q / 64) times, the tiles of one chunk
+//           running side by side (blocks of a chunk are adjacent) so L2
+//           serves most of the repeats.
+//   arithmetic: SIMT fmaf in increasing dimension order, as the previous
+//           kernel and the plain version's float32 matmul (cuBLAS, a batch
+//           of queries) sum: the scores are bit for bit those of before, so
+//           ids stay equal to the plain version's. The tensor cores
+//           (3xTF32) would need a filter with an error margin and an exact
+//           re-score; the selection, not the scan, was what cost, so it was
+//           not taken.
+//   select: a warp owns 8 of the block's queries and all 256 rows of a tile
+//           for them. Each (query, chunk) keeps a threshold (the k-th best
+//           pair its list has kept) and a survivor list. A group of 32
+//           scores (one a lane) is offered at once: a ballot counts those
+//           that beat the threshold, each lane writes its own at cnt + its
+//           rank in the ballot - no atomics. A cut keeps a list's k best by
+//           a radix select on the 64-bit key (order-preserving score bits
+//           above 0x7fffffff - id, so ties go to the lower id): 8-bit digits
+//           from the top, one shared histogram a pass (one atomic a distinct
+//           bin a warp) over the pairs that match the digits so far,
+//           stopping when the chosen bin holds exactly the pairs still
+//           needed; the threshold rises to the k-th key. Only that list is
+//           touched. Where the block's 64 lists fit in shared memory (k up to
+//           64 on the H100) a warp cuts its own list when a group would
+//           overflow it; otherwise the lists live in device memory with room
+//           for one more tile, and the block cuts each list past its cut
+//           point together, staged in shared memory, after the tile.
+//   seed:   a list that starts from the pad pair lets through every score
+//           until its first cut, then the k-th best of what it has seen: at
+//           k = 2048 and chunks of 30k rows about a third of all scores. So
+//           the wrapper first runs the same kernel over every 16th (and
+//           256th) row, and each list of the next pass starts from that
+//           pass's k-th pair: a lower bound of the k-th best (it is the k-th
+//           best of a subset), so nothing it drops could be in the answer.
+//   pass 2: one block a query selects k from its chunks' lists with the same
+//           select over device memory (chunk by chunk when lists are long,
+//           all slots at once when short, eight loads a thread in flight),
+//           then sorts those k alone (bitonic, shared memory) and pads the
+//           tail.
+// Every score equal: keys differ by id, rows arrive in increasing id, so
+// after the first cut nothing beats the threshold.
+//
 // Bound: at the port's shapes (d = 64, Q = 256) the scan does 2*Q*N*d FLOPs
-// against 4*N*d bytes of corpus, far above the float32 ridge, so it is bound
-// by float32 operations; the selection is mostly one compare a score, since
-// after the first tiles few scores beat the threshold.
+// against 4*N*d bytes of corpus, far above the float32 ridge: bound by
+// SIMT float32 operations. The selection adds one compare a score, the
+// pilots 1/16 + 1/256 of the scan, and the appends past the seed.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kDK = 32;           // dimension slice staged in shared memory
-constexpr float kNegInf = -1e30f; // NEG_INF of kernels/common.py
+constexpr int kWarps = kThreads / 32;
+constexpr int kBQ = 64;            // queries a block, 8 a warp
+constexpr int kBN = 256;           // rows a tile, 8 a lane
+constexpr int kDK = 32;            // dimensions a stage
+constexpr int kLd = kDK + 4;       // padded slice row, floats (144 bytes)
+constexpr int kStages = 3;
+constexpr int kStageFloats = (kBQ + kBN) * kLd;
+constexpr float kNegInf = -1e30f;  // NEG_INF of kernels/common.py
 constexpr int kPadId = -1;
-constexpr int kEmptyId = 0x7fffffff;
+constexpr int kMaxK = 4032;
+constexpr int kSortCap = 4096;     // pass 2 sorts at most this many pairs
+constexpr int kMaxChunks = 1024;
+
+__device__ __forceinline__ uint32_t ord_score(float s) {
+  const uint32_t b = __float_as_uint(s == 0.0f ? 0.0f : s);  // -0 as +0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Larger key = better pair: score descending, then id ascending.
+__device__ __forceinline__ uint64_t make_key(float s, int id) {
+  return ((uint64_t)ord_score(s) << 32) | (0x7fffffffu - (uint32_t)id);
+}
 
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
   return v1 > v2 || (v1 == v2 && i1 < i2);
 }
 
-// Sort each of the nq buffers of cap pairs (best first), cut it to k pairs
-// and set its threshold to the k-th pair. Every buffer holds >= k pairs.
-__device__ void flush_all(float* bv, int* bi, int* cnt, float* tv, int* ti,
-                          int nq, int cap, int k) {
-  const int tid = threadIdx.x;
-  for (int p = tid; p < nq * cap; p += kThreads) {
-    if (p % cap >= cnt[p / cap]) {
-      bv[p] = -CUDART_INF_F;
-      bi[p] = kEmptyId;
-    }
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The digit of one radix pass: given the histogram of the pass (256 bins,
+// shared memory) and the pairs still needed, the highest bin d with
+// #{bins >= d} >= need. Returns d; sets *above = #{bins > d} and *in_bin =
+// hist[d]. Called by a whole warp; every lane gets the result.
+__device__ __forceinline__ int pick_digit(const int* hist, int need,
+                                          int* above, int* in_bin) {
+  const int lane = threadIdx.x & 31;
+  int c[8], s = 0;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    c[t] = hist[255 - 8 * lane - t];
+    s += c[t];
   }
-  __syncthreads();
-  const int half = cap / 2;
-  for (int size = 2; size <= cap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < nq * half; t += kThreads) {
-        const int base = (t / half) * cap;
-        const int u = t % half;
-        const int i = 2 * u - (u & (stride - 1));
-        const int j = i + stride;
-        const bool best_first = (i & size) == 0;
-        const float vi = bv[base + i], vj = bv[base + j];
-        const int ii = bi[base + i], ij = bi[base + j];
-        const bool swap = best_first ? better(vj, ij, vi, ii)
-                                     : better(vi, ii, vj, ij);
-        if (swap) {
-          bv[base + i] = vj; bv[base + j] = vi;
-          bi[base + i] = ij; bi[base + j] = ii;
-        }
+  int incl = s;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  const int excl = incl - s;
+  const bool mine = excl < need && need <= incl;
+  const unsigned ball = __ballot_sync(0xffffffffu, mine);
+  const int src = __ffs(ball) - 1;
+  int digit = 0, ab = 0, cnt = 0;
+  if (mine) {
+    int acc = excl;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (acc + c[t] >= need) {
+        digit = 255 - 8 * lane - t;
+        ab = acc;
+        cnt = c[t];
+        break;
       }
-      __syncthreads();
+      acc += c[t];
     }
   }
-  for (int q = tid; q < nq; q += kThreads) {
-    cnt[q] = k;
-    tv[q] = bv[q * cap + k - 1];
-    ti[q] = bi[q * cap + k - 1];
-  }
-  __syncthreads();
+  *above = __shfl_sync(0xffffffffu, ab, src);
+  *in_bin = __shfl_sync(0xffffffffu, cnt, src);
+  return __shfl_sync(0xffffffffu, digit, src);
 }
 
-__device__ void init_buffers(float* bv, int* bi, int* cnt, float* tv, int* ti,
-                             int nq, int cap, int k) {
-  for (int p = threadIdx.x; p < nq * cap; p += kThreads) {
-    const bool pad = p % cap < k;
-    bv[p] = pad ? kNegInf : -CUDART_INF_F;
-    bi[p] = pad ? kPadId : kEmptyId;
-  }
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    cnt[q] = k;
-    tv[q] = kNegInf;
-    ti[q] = kPadId;
-  }
-  __syncthreads();
+// Add one to hist[bin] for each lane with `valid`, one shared atomic per
+// distinct bin of the warp: the keys of a list share their top bits, so a
+// plain atomic a lane would serialise the warp on one or two bins. Called
+// by the whole warp.
+__device__ __forceinline__ void hist_add(int* hist, int bin, bool valid) {
+  if (!__any_sync(0xffffffffu, valid)) return;
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? bin : -1);
+  if (valid && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(&hist[bin], __popc(peers));
 }
 
-// Pass 1. Block (blockIdx.x, blockIdx.y) = (query tile of BQ, corpus chunk
-// of `chunk` rows). Threads form TY x TX with TY = BQ / TQ; thread (ty, tx)
-// scores queries ty + TY*a (a < TQ) against tile rows tx + TX*b (b < TR).
-// Writes k pairs per (query, chunk) at out[q * out_stride + chunk * k].
-template <int BQ, int TQ, int TR>
-__global__ void __launch_bounds__(kThreads)
+// One warp cuts the list (v, id) of n > k pairs (distinct keys) to its k best
+// in place, unordered, and returns the k-th best key. hist: this warp's 256
+// ints of shared memory. Radix select on the 64-bit key, 8 bits a pass from
+// the top; it stops at the first pass whose chosen bin holds exactly the
+// pairs still needed (with distinct keys, at the last pass at worst).
+__device__ __noinline__ uint64_t warp_select(float* __restrict__ v,
+                                             int* __restrict__ id, int n,
+                                             int k, int* hist) {
+  const int lane = threadIdx.x & 31;
+  uint64_t prefix = 0;
+  int need = k, shift = 64;
+  for (;;) {
+    shift -= 8;
+    for (int i = lane; i < 256; i += 32) hist[i] = 0;
+    __syncwarp();
+    for (int j0 = 0; j0 < n; j0 += 4 * 32) {
+      uint64_t key[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u + lane;
+        key[u] = j < n ? make_key(v[j], id[j]) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u + lane;
+        hist_add(hist, (int)((key[u] >> shift) & 255),
+                 j < n && (shift == 56 || (key[u] >> (shift + 8)) ==
+                                              (prefix >> (shift + 8))));
+      }
+    }
+    __syncwarp();
+    int above, in_bin;
+    const int digit = pick_digit(hist, need, &above, &in_bin);
+    __syncwarp();
+    need -= above;
+    prefix |= (uint64_t)digit << shift;
+    if (in_bin == need || shift == 0) break;
+  }
+  // keep the pairs whose top (64 - shift) bits are >= the prefix's
+  uint64_t lo = ~0ull;
+  int out = 0;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    const int j = j0 + lane;
+    float sv = 0.0f;
+    int si = 0;
+    uint64_t key = 0;
+    bool keep = false;
+    if (j < n) {
+      sv = v[j];
+      si = id[j];
+      key = make_key(sv, si);
+      keep = (key >> shift) >= (prefix >> shift);
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();  // every lane has read its pair before any is overwritten
+    if (keep) {
+      const int p = out + __popc(b & lanemask_lt());
+      v[p] = sv;
+      id[p] = si;
+      lo = key < lo ? key : lo;
+    }
+    out += __popc(b);
+    __syncwarp();
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const uint64_t o = __shfl_xor_sync(0xffffffffu, lo, off);
+    lo = o < lo ? o : lo;
+  }
+  return lo;
+}
+
+// Stage (tile t, slice s) of the ring: the block's 64 query rows and the
+// tile's 256 corpus rows (scan row r is corpus row r * step), dimensions
+// [32 s, 32 s + 32), zero-filled past the edges. kVec: 16-byte copies
+// (d % 4 == 0, 16-byte aligned rows).
+template <bool kVec>
+__device__ __forceinline__ void load_stage(float* st, const float* q,
+                                           const float* db, int nq, int d,
+                                           int q0, long long r0,
+                                           long long r_end, int k0,
+                                           int step) {
+  float* qs = st;
+  float* ds = st + kBQ * kLd;
+  const int tid = threadIdx.x;
+  if (kVec) {
+    for (int p = tid; p < kBQ * (kDK / 4); p += kThreads) {
+      const int r = p / (kDK / 4), c = 4 * (p % (kDK / 4));
+      const bool ok = q0 + r < nq && k0 + c < d;
+      cp_async16(qs + r * kLd + c,
+                 ok ? q + (long long)(q0 + r) * d + k0 + c : q, ok);
+    }
+    for (int p = tid; p < kBN * (kDK / 4); p += kThreads) {
+      const int r = p / (kDK / 4), c = 4 * (p % (kDK / 4));
+      const bool ok = r0 + r < r_end && k0 + c < d;
+      cp_async16(ds + r * kLd + c,
+                 ok ? db + (r0 + r) * step * d + k0 + c : db, ok);
+    }
+  } else {
+    for (int p = tid; p < kBQ * kDK; p += kThreads) {
+      const int r = p / kDK, c = p % kDK;
+      const bool ok = q0 + r < nq && k0 + c < d;
+      cp_async4(qs + r * kLd + c,
+                ok ? q + (long long)(q0 + r) * d + k0 + c : q, ok);
+    }
+    for (int p = tid; p < kBN * kDK; p += kThreads) {
+      const int r = p / kDK, c = p % kDK;
+      const bool ok = r0 + r < r_end && k0 + c < d;
+      cp_async4(ds + r * kLd + c,
+                ok ? db + (r0 + r) * step * d + k0 + c : db, ok);
+    }
+  }
+}
+
+// Block-wide cut of one list: the n pairs at (gv, gi) (shared or device
+// memory) are staged in shared memory (sv, si), radix-selected to their k
+// best with the block's threads, and written back to (gv, gi)[0, k), in no
+// order. Returns the k-th best key to every thread. Called by the whole
+// block, uniformly; sel: the block's shared scalars.
+struct BlockSel {
+  int hist[256];
+  int digit, above, in_bin, out;
+  unsigned long long kth;
+};
+
+__device__ uint64_t block_select(float* gv, int* gi, int n, int k,
+                                 float* sv, int* si, BlockSel& sel) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, w0 = (tid >> 5) * 32;
+  for (int p0 = tid; p0 < n; p0 += 8 * kThreads) {   // 8 loads in flight
+    float v[8];
+    int id[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < n) {
+        v[u] = gv[p];
+        id[u] = gi[p];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int p = p0 + u * kThreads;
+      if (p < n) {
+        sv[p] = v[u];
+        si[p] = id[u];
+      }
+    }
+  }
+  if (tid == 0) {
+    sel.out = 0;
+    sel.kth = ~0ull;
+  }
+  uint64_t prefix = 0;
+  int need = k, shift = 64;
+  for (;;) {
+    shift -= 8;
+    for (int i = tid; i < 256; i += kThreads) sel.hist[i] = 0;
+    __syncthreads();
+    for (int p0 = w0; p0 < n; p0 += kThreads) {      // warp-uniform
+      const int p = p0 + lane;
+      const uint64_t key = p < n ? make_key(sv[p], si[p]) : 0;
+      hist_add(sel.hist, (int)((key >> shift) & 255),
+               p < n && (shift == 56 ||
+                         (key >> (shift + 8)) == (prefix >> (shift + 8))));
+    }
+    __syncthreads();
+    if (tid < 32) {
+      int above, in_bin;
+      const int digit = pick_digit(sel.hist, need, &above, &in_bin);
+      if (tid == 0) {
+        sel.digit = digit;
+        sel.above = above;
+        sel.in_bin = in_bin;
+      }
+    }
+    __syncthreads();
+    need -= sel.above;
+    prefix |= (uint64_t)sel.digit << shift;
+    const bool done = sel.in_bin == need || shift == 0;
+    __syncthreads();
+    if (done) break;
+  }
+  for (int p = tid; p < n; p += kThreads) {
+    const uint64_t key = make_key(sv[p], si[p]);
+    if ((key >> shift) >= (prefix >> shift)) {
+      const int o = atomicAdd(&sel.out, 1);
+      gv[o] = sv[p];
+      gi[o] = si[p];
+      atomicMin(&sel.kth, (unsigned long long)key);
+    }
+  }
+  __syncthreads();
+  return sel.kth;
+}
+
+// The pair a key stands for (-0 comes back as +0, which compares equal).
+__device__ __forceinline__ void key_pair(uint64_t key, float* v, int* id) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  *v = __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+  *id = (int)(0x7fffffffu - (uint32_t)key);
+}
+
+// The append path of the epilogue, for one query and one tile: the lane's
+// 8 scores s_j of rows row + 32 j, m the bits of those that beat the
+// query's threshold (thr_v, thr_i). Groups of 32 rows (one a lane) are
+// offered in order; each lane writes its pairs at cnt + its rank in the
+// ballot (scan row r is corpus row r * step). kSmemLists: a group that
+// would overflow the list (cap pairs) first cuts it to k (warp_select), the
+// threshold rises and the group and the later ones are filtered again.
+// Whole warp.
+template <bool kSmemLists>
+__device__ __forceinline__ void append_tile_body(
+    float s0, float s1, float s2, float s3, float s4, float s5, float s6,
+    float s7, unsigned m, long long row, int step, float* lv, int* li, int k,
+    int cap, int* hist, float* thr_v, int* thr_i, int* cnt) {
+  const float s[8] = {s0, s1, s2, s3, s4, s5, s6, s7};
+  float t_v = *thr_v;
+  int t_i = *thr_i;
+  int n_in = *cnt;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = (int)((row + 32 * j) * step);
+    bool take = (m >> j) & 1u;
+    unsigned b = __ballot_sync(0xffffffffu, take);
+    if (b == 0) continue;
+    if (kSmemLists && n_in + __popc(b) > cap) {   // cut this list first
+      __syncwarp();
+      key_pair(warp_select(lv, li, n_in, k, hist), &t_v, &t_i);
+      n_in = k;
+#pragma unroll
+      for (int jj = j; jj < 8; ++jj)   // this group and the later ones
+        if (!better(s[jj], (int)((row + 32 * jj) * step), t_v, t_i))
+          m &= ~(1u << jj);
+      take = (m >> j) & 1u;
+      b = __ballot_sync(0xffffffffu, take);
+    }
+    if (take) {
+      const int p = n_in + __popc(b & lanemask_lt());
+      lv[p] = s[j];
+      li[p] = r;
+    }
+    n_in += __popc(b);
+  }
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) {
+    *cnt = n_in;
+    *thr_v = t_v;
+    *thr_i = t_i;
+  }
+  __syncwarp();
+}
+
+// With the lists in shared memory the append path holds a cut, rare after
+// the first tiles: kept out of line, so the unrolled epilogue stays small
+// (inlined 8 times it thrashed the instruction cache). In device memory it
+// holds none and runs at most tiles, so it is inlined.
+__device__ __noinline__ void append_tile_cut(
+    float s0, float s1, float s2, float s3, float s4, float s5, float s6,
+    float s7, unsigned m, long long row, int step, float* lv, int* li, int k,
+    int cap, int* hist, float* thr_v, int* thr_i, int* cnt) {
+  append_tile_body<true>(s0, s1, s2, s3, s4, s5, s6, s7, m, row, step, lv,
+                         li, k, cap, hist, thr_v, thr_i, cnt);
+}
+
+// Pass 1. Block b = (chunk b / q_tiles, query tile b % q_tiles); the list
+// of block-local query ql is L = b * 64 + ql. Its final <= k pairs go to
+// out_v/out_i + L * k, counts[L] = their count.
+// kSmemLists: the lists (cap pairs each) live in shared memory, each warp
+// cuts its own when a group of 32 would overflow it. Otherwise they live in
+// device memory (list_v/list_i + L * cap, cap = flush_at + 256), appends
+// never cut, and after each tile the block cuts every list holding more
+// than flush_at pairs, one at a time, staged in shared memory (at the start
+// of the next step, after its barrier: no barrier of its own a tile).
+template <bool kVec, bool kSmemLists>
+__global__ void __launch_bounds__(kThreads, 1)
 l2_topk_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
-                    const float* __restrict__ dsq, int nq_total, int n_rows,
-                    int d, int k, int cap, int chunk, long long out_stride,
-                    float* __restrict__ out_v, int* __restrict__ out_i) {
-  constexpr int TY = BQ / TQ;
-  constexpr int TX = kThreads / TY;
-  constexpr int BN = TX * TR;
-  extern __shared__ unsigned char smem[];
-  float* bv = reinterpret_cast<float*>(smem);
-  int* bi = reinterpret_cast<int*>(bv + BQ * cap);
-  __shared__ float qs[BQ][kDK + 1];
-  __shared__ float ds[kDK][BN + 1];
-  __shared__ int cnt[BQ];
-  __shared__ float tv[BQ];
-  __shared__ int ti[BQ];
-  __shared__ int need_flush;
+                    const float* __restrict__ dsq, int nq, int n_rows, int d,
+                    int k, int cap, int flush_at, int chunk, int q_tiles,
+                    int row_step, const float* __restrict__ init_v,
+                    const int* __restrict__ init_i,
+                    float* __restrict__ list_v, int* __restrict__ list_i,
+                    float* __restrict__ out_v, int* __restrict__ out_i,
+                    int* __restrict__ counts) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  int* hist = reinterpret_cast<int*>(ring + kStages * kStageFloats) +
+              (threadIdx.x >> 5) * 256;
+  // after the ring and the warps' histograms: the lists or the staging
+  float* rest_v = reinterpret_cast<float*>(ring + kStages * kStageFloats +
+                                           kWarps * 256);
+  int* rest_i = reinterpret_cast<int*>(
+      rest_v + (kSmemLists ? (size_t)kBQ * cap : (size_t)cap));
+  __shared__ float thr_v[kBQ];
+  __shared__ int thr_i[kBQ];
+  __shared__ int cnt[kBQ];
+  __shared__ BlockSel sel;
+  __shared__ int need_cut;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / TX;
-  const int tx = tid % TX;
-  const int q0 = blockIdx.x * BQ;
-  const long long r_begin = (long long)blockIdx.y * chunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % q_tiles;
+  const long long c = blockIdx.x / q_tiles;
+  const int q0 = qt * kBQ;
+  const long long r_begin = c * chunk;
   const long long r_end = min((long long)n_rows, r_begin + chunk);
-
-  init_buffers(bv, bi, cnt, tv, ti, BQ, cap, k);
-  if (tid == 0) need_flush = 0;
+  auto lv_of = [&](int ql) {
+    return kSmemLists ? rest_v + (size_t)ql * cap
+                      : list_v + ((long long)blockIdx.x * kBQ + ql) * cap;
+  };
+  auto li_of = [&](int ql) {
+    return kSmemLists ? rest_i + (size_t)ql * cap
+                      : list_i + ((long long)blockIdx.x * kBQ + ql) * cap;
+  };
+  if (tid < kBQ) {
+    // the pad pair: a real pair must beat it; or a pilot's k-th pair
+    // (v0, i0), which the pair itself must pass too: (v0, i0 + 1)
+    const bool seeded = init_v != nullptr && q0 + tid < nq;
+    thr_v[tid] = seeded ? init_v[(long long)(q0 + tid) * k + k - 1] : kNegInf;
+    thr_i[tid] = seeded ? init_i[(long long)(q0 + tid) * k + k - 1] + 1
+                        : kPadId;
+    cnt[tid] = 0;
+  }
+  if (tid == 0) need_cut = 0;
   __syncthreads();
 
-  for (long long r0 = r_begin; r0 < r_end; r0 += BN) {
-    float acc[TQ][TR];
-#pragma unroll
-    for (int a = 0; a < TQ; ++a)
-#pragma unroll
-      for (int b = 0; b < TR; ++b) acc[a][b] = 0.0f;
+  const int nks = (d + kDK - 1) / kDK;
+  const int tiles = (int)((r_end - r_begin + kBN - 1) / kBN);
+  const int steps = tiles * nks;
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps)
+      load_stage<kVec>(ring + s * kStageFloats, q, db, nq, d, q0,
+                       r_begin + (long long)(s / nks) * kBN, r_end,
+                       (s % nks) * kDK, row_step);
+    cp_async_commit();
+  }
 
-    for (int k0 = 0; k0 < d; k0 += kDK) {
-      for (int p = tid; p < BQ * kDK; p += kThreads) {
-        const int a = p / kDK, kk = p % kDK;
-        const int gq = q0 + a, gk = k0 + kk;
-        qs[a][kk] = (gq < nq_total && gk < d) ? q[(long long)gq * d + gk] : 0.f;
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+  float dq[8];
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    {
+      const int s = step + kStages - 1;
+      if (s < steps)
+        load_stage<kVec>(ring + (s % kStages) * kStageFloats, q, db, nq, d,
+                         q0, r_begin + (long long)(s / nks) * kBN, r_end,
+                         (s % nks) * kDK, row_step);
+      cp_async_commit();
+    }
+    if (!kSmemLists && need_cut) {   // the last tile passed flush_at: cut
+      for (int ql = 0; ql < kBQ; ++ql) {   // each such list, one by one
+        const int n_in = cnt[ql];
+        if (n_in <= flush_at) continue;
+        const uint64_t kth =
+            block_select(lv_of(ql), li_of(ql), n_in, k, rest_v, rest_i, sel);
+        if (tid == 0) {
+          key_pair(kth, &thr_v[ql], &thr_i[ql]);
+          cnt[ql] = k;
+        }
+        __syncthreads();
       }
-      for (int p = tid; p < BN * kDK; p += kThreads) {
-        const int r = p / kDK, kk = p % kDK;
-        const long long gr = r0 + r;
-        const int gk = k0 + kk;
-        ds[kk][r] = (gr < r_end && gk < d) ? db[gr * d + gk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kDK; ++kk) {
-        float av[TQ], bw[TR];
-#pragma unroll
-        for (int a = 0; a < TQ; ++a) av[a] = qs[ty + TY * a][kk];
-#pragma unroll
-        for (int b = 0; b < TR; ++b) bw[b] = ds[kk][tx + TX * b];
-#pragma unroll
-        for (int a = 0; a < TQ; ++a)
-#pragma unroll
-          for (int b = 0; b < TR; ++b) acc[a][b] = fmaf(av[a], bw[b], acc[a][b]);
-      }
+      if (tid == 0) need_cut = 0;
       __syncthreads();
     }
+    const bool last_slice = step % nks == nks - 1;
+    const long long r0 = r_begin + (long long)(step / nks) * kBN;
+    if (last_slice) {   // the tile's row terms, loaded under the FMAs
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long r = r0 + lane + 32 * j;
+        dq[j] = r < r_end ? dsq[r * row_step] : 0.0f;
+      }
+    }
+    const float* qs = ring + (step % kStages) * kStageFloats + warp * 8 * kLd;
+    const float* ds = ring + (step % kStages) * kStageFloats + kBQ * kLd +
+                      lane * kLd;
+#pragma unroll 2
+    for (int kk = 0; kk < kDK; kk += 4) {
+      float4 a[8], b[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + i * kLd + kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        b[j] = *reinterpret_cast<const float4*>(ds + 32 * j * kLd + kk);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+    }
+    if (!last_slice) continue;
 
+    // epilogue of the tile: this warp's 8 queries x the tile's 256 rows
 #pragma unroll
-    for (int a = 0; a < TQ; ++a) {
-      const int qa = ty + TY * a;
-      if (q0 + qa >= nq_total) continue;
-      const float t_v = tv[qa];
-      const int t_i = ti[qa];
+    for (int i = 0; i < 8; ++i) {
+      const int ql = warp * 8 + i;
+      float t_v = thr_v[ql];
+      int t_i = thr_i[ql];
+      unsigned m = 0;
 #pragma unroll
-      for (int b = 0; b < TR; ++b) {
-        const long long gr = r0 + tx + TX * b;
-        if (gr >= r_end) continue;
-        const float s = 2.0f * acc[a][b] - dsq[gr];
-        if (better(s, (int)gr, t_v, t_i)) {
-          const int pos = atomicAdd(&cnt[qa], 1);
-          bv[qa * cap + pos] = s;
-          bi[qa * cap + pos] = (int)gr;
+      for (int j = 0; j < 8; ++j) {
+        const long long r = r0 + lane + 32 * j;
+        const float s = 2.0f * acc[i][j] - dq[j];
+        acc[i][j] = s;
+        if (r < r_end && better(s, (int)(r * row_step), t_v, t_i))
+          m |= 1u << j;
+      }
+      if (q0 + ql < nq && __any_sync(0xffffffffu, m != 0))
+      {
+        if (kSmemLists)
+          append_tile_cut(acc[i][0], acc[i][1], acc[i][2], acc[i][3],
+                          acc[i][4], acc[i][5], acc[i][6], acc[i][7], m,
+                          r0 + lane, row_step, lv_of(ql), li_of(ql), k, cap,
+                          hist, thr_v + ql, thr_i + ql, cnt + ql);
+        else
+          append_tile_body<false>(acc[i][0], acc[i][1], acc[i][2], acc[i][3],
+                                  acc[i][4], acc[i][5], acc[i][6], acc[i][7],
+                                  m, r0 + lane, row_step, lv_of(ql),
+                                  li_of(ql), k, cap, hist, thr_v + ql,
+                                  thr_i + ql, cnt + ql);
+      }
+      if (!kSmemLists && lane == 0 && cnt[ql] > flush_at) need_cut = 1;
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the chunk's end: each list cut to k, written out, its tail padded
+  for (int ql = 0; ql < kBQ; ++ql) {
+    if (kSmemLists) {
+      if (ql / 8 != warp) continue;
+      if (cnt[ql] > k) warp_select(lv_of(ql), li_of(ql), cnt[ql], k, hist);
+    } else if (cnt[ql] > k) {
+      block_select(lv_of(ql), li_of(ql), cnt[ql], k, rest_v, rest_i, sel);
+    }
+  }
+  __syncthreads();
+  for (int ql = warp; ql < kBQ; ql += kWarps) {
+    const int n_in = min(cnt[ql], k);
+    const float* lv = lv_of(ql);
+    const int* li = li_of(ql);
+    float* ov = out_v + ((long long)blockIdx.x * kBQ + ql) * k;
+    int* oi = out_i + ((long long)blockIdx.x * kBQ + ql) * k;
+    for (int p = lane; p < n_in; p += 32) {
+      ov[p] = lv[p];
+      oi[p] = li[p];
+    }
+    if (lane == 0) counts[(long long)blockIdx.x * kBQ + ql] = n_in;
+  }
+}
+
+// Calls f(v, id, ok) for each real pair (v, id) of one query's chunk
+// lists (cnts[c] pairs at the front of chunk c's k slots; ok false for
+// the calls that hold none), every lane of a warp calling the same number
+// of times, eight loads a thread in flight. Long lists (k >= the block) are
+// walked one chunk at a time over their real pairs, short ones all at once
+// over the chunks * k slots.
+template <typename F>
+__device__ __forceinline__ void visit_pairs(const float* __restrict__ pv,
+                                            const int* __restrict__ pi,
+                                            const int* cnts, int chunks,
+                                            int k, int q_tiles, int qt,
+                                            int ql, F&& f) {
+  constexpr int kIn = 8;
+  const int lane = threadIdx.x & 31, w0 = threadIdx.x - lane;
+  auto base = [&](int c) {
+    return (((long long)c * q_tiles + qt) * kBQ + ql) * k;
+  };
+  float v[kIn];
+  int id[kIn];
+  bool ok[kIn];
+  if (k >= kThreads) {
+    for (int c = 0; c < chunks; ++c) {
+      const int n_c = cnts[c];
+      const long long b = base(c);
+      for (int j0 = w0; j0 < n_c; j0 += kIn * kThreads) {
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) {
+          const int j = j0 + lane + u * kThreads;
+          ok[u] = j < n_c;
+          v[u] = ok[u] ? pv[b + j] : 0.0f;
+          id[u] = ok[u] ? pi[b + j] : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kIn; ++u) f(v[u], id[u], ok[u]);
+      }
+    }
+  } else {
+    const int slots = chunks * k;
+    for (int e0 = w0; e0 < slots; e0 += kIn * kThreads) {
+#pragma unroll
+      for (int u = 0; u < kIn; ++u) {
+        const int e = e0 + lane + u * kThreads;
+        const int c = e / k, j = e - c * k;
+        ok[u] = e < slots && j < cnts[c];
+        v[u] = ok[u] ? pv[base(c) + j] : 0.0f;
+        id[u] = ok[u] ? pi[base(c) + j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kIn; ++u) f(v[u], id[u], ok[u]);
+    }
+  }
+}
+
+// Pass 2: block q selects k pairs from its chunks' lists (counts[L] real
+// pairs at the front of each list's k slots) by a radix select over device
+// memory (visit_pairs), sorts them and writes them, the tail padded with
+// (NEG_INF, -1). At most kMaxChunks chunks.
+__global__ void __launch_bounds__(kThreads)
+l2_topk_merge_kernel(const float* __restrict__ part_v,
+                     const int* __restrict__ part_i,
+                     const int* __restrict__ counts, int q_tiles, int chunks,
+                     int k, float* __restrict__ out_v,
+                     int* __restrict__ out_i) {
+  __shared__ float sv[kSortCap];
+  __shared__ int si[kSortCap];
+  __shared__ int hist[256];
+  __shared__ int cnts[kMaxChunks];
+  __shared__ int total, n_sel, s_digit, s_above, s_in_bin;
+
+  const int tid = threadIdx.x;
+  const int qb = blockIdx.x;
+  const int qt = qb / kBQ, ql = qb % kBQ;
+  if (tid == 0) {
+    total = 0;
+    n_sel = 0;
+  }
+  __syncthreads();
+  for (int c = tid; c < chunks; c += kThreads) {
+    cnts[c] = counts[((long long)c * q_tiles + qt) * kBQ + ql];
+    atomicAdd(&total, cnts[c]);
+  }
+  __syncthreads();
+
+  int shift = 64;
+  uint64_t prefix = 0;
+  if (total > k) {
+    int need = k;
+    for (;;) {
+      shift -= 8;
+      for (int i = tid; i < 256; i += kThreads) hist[i] = 0;
+      __syncthreads();
+      visit_pairs(part_v, part_i, cnts, chunks, k, q_tiles, qt, ql,
+                  [&](float v, int id, bool ok) {
+                    const uint64_t key = ok ? make_key(v, id) : 0;
+                    hist_add(hist, (int)((key >> shift) & 255),
+                             ok && (shift == 56 ||
+                                    (key >> (shift + 8)) ==
+                                        (prefix >> (shift + 8))));
+                  });
+      __syncthreads();
+      if (tid < 32) {
+        int above, in_bin;
+        const int digit = pick_digit(hist, need, &above, &in_bin);
+        if (tid == 0) {
+          s_digit = digit;
+          s_above = above;
+          s_in_bin = in_bin;
         }
       }
+      __syncthreads();
+      need -= s_above;
+      prefix |= (uint64_t)s_digit << shift;
+      const bool done = s_in_bin == need || shift == 0;
+      __syncthreads();
+      if (done) break;
     }
-    __syncthreads();
-    // a buffer that could not take a whole next tile is flushed (all are)
-    if (tid < BQ && cnt[tid] + BN > cap) need_flush = 1;
-    __syncthreads();
-    if (need_flush) {
-      flush_all(bv, bi, cnt, tv, ti, BQ, cap, k);
-      if (tid == 0) need_flush = 0;
+  }
+  // gather the kept pairs (every pair when there are at most k)
+  visit_pairs(part_v, part_i, cnts, chunks, k, q_tiles, qt, ql,
+              [&](float v, int id, bool ok) {
+                if (ok && (shift == 64 || (make_key(v, id) >> shift) >=
+                                              (prefix >> shift))) {
+                  const int p = atomicAdd(&n_sel, 1);
+                  sv[p] = v;
+                  si[p] = id;
+                }
+              });
+  __syncthreads();
+  const int m = n_sel;  // min(total, k)
+  int size = 1;
+  while (size < m) size <<= 1;
+  for (int p = m + tid; p < size; p += kThreads) {
+    sv[p] = -CUDART_INF_F;
+    si[p] = 0x7fffffff;
+  }
+  __syncthreads();
+  // bitonic sort of the kept pairs, best first
+  for (int len = 2; len <= size; len <<= 1) {
+    for (int stride = len >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < size / 2; t += kThreads) {
+        const int i = 2 * t - (t & (stride - 1));
+        const int j = i + stride;
+        const bool best_first = (i & len) == 0;
+        const float vi = sv[i], vj = sv[j];
+        const int ii = si[i], ij = si[j];
+        if (best_first ? better(vj, ij, vi, ii) : better(vi, ii, vj, ij)) {
+          sv[i] = vj; sv[j] = vi;
+          si[i] = ij; si[j] = ii;
+        }
+      }
       __syncthreads();
     }
   }
-
-  flush_all(bv, bi, cnt, tv, ti, BQ, cap, k);
-  for (int p = tid; p < BQ * k; p += kThreads) {
-    const int a = p / k, s = p % k;
-    if (q0 + a >= nq_total) continue;
-    const long long o = (long long)(q0 + a) * out_stride +
-                        (long long)blockIdx.y * k + s;
-    out_v[o] = bv[a * cap + s];
-    out_i[o] = bi[a * cap + s];
+  for (int s = tid; s < k; s += kThreads) {
+    out_v[(long long)qb * k + s] = s < m ? sv[s] : kNegInf;
+    out_i[(long long)qb * k + s] = s < m ? si[s] : kPadId;
   }
 }
 
-// Pass 2: block q merges its L = chunks * k candidate pairs into k.
-__global__ void __launch_bounds__(kThreads)
-l2_topk_merge_kernel(const float* __restrict__ in_v,
-                     const int* __restrict__ in_i, long long len, int k,
-                     int cap, float* __restrict__ out_v,
-                     int* __restrict__ out_i) {
-  extern __shared__ unsigned char smem[];
-  float* bv = reinterpret_cast<float*>(smem);
-  int* bi = reinterpret_cast<int*>(bv + cap);
-  __shared__ int cnt[1];
-  __shared__ float tv[1];
-  __shared__ int ti[1];
-  const long long qb = (long long)blockIdx.x;
-  const float* iv = in_v + qb * len;
-  const int* ii = in_i + qb * len;
-
-  init_buffers(bv, bi, cnt, tv, ti, 1, cap, k);
-  for (long long j0 = 0; j0 < len; j0 += kThreads) {
-    const long long j = j0 + threadIdx.x;
-    const float t_v = tv[0];
-    const int t_i = ti[0];
-    if (j < len) {
-      const float v = iv[j];
-      const int id = ii[j];
-      if (better(v, id, t_v, t_i)) {
-        const int pos = atomicAdd(&cnt[0], 1);
-        bv[pos] = v;
-        bi[pos] = id;
-      }
-    }
-    __syncthreads();
-    const bool full = cnt[0] + kThreads > cap;
-    __syncthreads();  // every thread has read cnt before it can change
-    if (full) flush_all(bv, bi, cnt, tv, ti, 1, cap, k);
-  }
-  flush_all(bv, bi, cnt, tv, ti, 1, cap, k);
-  for (int s = threadIdx.x; s < k; s += kThreads) {
-    out_v[qb * k + s] = bv[s];
-    out_i[qb * k + s] = bi[s];
-  }
+size_t ring_smem() {
+  return sizeof(float) * kStages * kStageFloats + sizeof(int) * kWarps * 256;
 }
 
-int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
+// Shared memory a scan block needs: the ring, the warps' histograms, and
+// the lists (kSmemLists) or one list's staging.
+size_t scan_smem(bool smem_lists, int cap) {
+  return ring_smem() + 8 * (size_t)cap * (smem_lists ? kBQ : 1);
 }
 
-template <int BQ, int TQ, int TR>
+template <bool kVec, bool kSmemLists>
 int launch_scan(const float* q, const float* db, const float* dsq, int nq,
-                int n, int d, int k, int cap, int chunk, int chunks,
-                long long out_stride, float* out_v, int* out_i,
+                int n, int d, int k, int cap, int flush_at, int chunk,
+                int q_tiles, int blocks, int row_step, const float* init_v,
+                const int* init_i, float* list_v, int* list_i,
+                float* part_v, int* part_i, int* counts,
                 cudaStream_t stream) {
-  auto kern = l2_topk_scan_kernel<BQ, TQ, TR>;
-  const int smem = BQ * cap * 8;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kern = l2_topk_scan_kernel<kVec, kSmemLists>;
+  const size_t smem = scan_smem(kSmemLists, cap);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((nq + BQ - 1) / BQ, chunks);
-  kern<<<grid, kThreads, smem, stream>>>(q, db, dsq, nq, n, d, k, cap, chunk,
-                                         out_stride, out_v, out_i);
+  kern<<<blocks, kThreads, smem, stream>>>(
+      q, db, dsq, nq, n, d, k, cap, flush_at, chunk, q_tiles, row_step,
+      init_v, init_i, list_v, list_i, part_v, part_i, counts);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tile geometry for k: which configuration runs, its query tile, its
-// candidate-buffer size. Returns 0, or -1 when k is above kMaxK.
-// Configurations (BQ, TQ, TR), all with a 64-row corpus tile:
-//   0: (32, 2, 4) for cap <= 256;  1: (8, 1, 2) for cap <= 2048;
-//   2: (4, 1, 1) for cap <= 4096.
-extern "C" int l2_topk_plan(int k, int* config, int* bq, int* cap) {
-  const int bn = 64;
-  int c = next_pow2(k + bn);
-  if (c <= 256) { *config = 0; *bq = 32; *cap = 256; return 0; }
-  if (c <= 2048) { *config = 1; *bq = 8; *cap = c; return 0; }
-  if (c <= 4096) { *config = 2; *bq = 4; *cap = c; return 0; }
-  return -1;
+extern "C" int l2_topk_max_k() { return kMaxK; }
+
+// Geometry the wrapper plans with: queries a block, rows a tile.
+extern "C" int l2_topk_query_tile() { return kBQ; }
+extern "C" int l2_topk_row_tile() { return kBN; }
+
+// Bytes of shared memory a scan block needs with its lists in shared
+// memory (smem_lists = 1, cap pairs a list) or with one list staged.
+extern "C" long long l2_topk_scan_smem(int smem_lists, int cap) {
+  return (long long)scan_smem(smem_lists != 0, cap);
 }
 
-extern "C" int l2_topk_max_k() { return 4096 - 64; }
-
-// Pass 1 (and, when chunks > 1, pass 2 into out). part_v/part_i hold
-// nq * chunks * k pairs of scratch when chunks > 1 (unused otherwise).
-// Returns the first cudaError_t met, -1 for an unsupported k.
+// Pass 1 into part (q_tiles * chunks * 64 lists of k slots) and counts,
+// pass 2 into out. Pass 1 scans the rows r * row_step, r < n (the n scan
+// rows of a pilot over a sample, or every row with row_step 1); init_v,
+// init_i (or null): a pilot's [nq, k] output, whose k-th pair seeds each
+// list's threshold. The plan comes from the wrapper: chunks = ceil(n /
+// chunk), chunk a multiple of the row tile; smem_lists: the lists in shared
+// memory, cap >= k + 32 pairs each; otherwise in list_v/list_i (q_tiles *
+// chunks * 64 lists of cap = flush_at + 256 pairs), flush_at >= k + 32.
+// Returns the first cudaError_t met, -1 for arguments out of range.
 extern "C" int l2_topk_launch(const float* q, const float* db,
                               const float* dsq, int nq, int n, int d, int k,
-                              int chunk, int chunks, float* part_v,
-                              int* part_i, float* out_v, int* out_i,
-                              void* stream) {
+                              int row_step, const float* init_v,
+                              const int* init_i, int chunk, int chunks,
+                              int smem_lists, int cap, int flush_at,
+                              float* list_v, int* list_i, float* part_v,
+                              int* part_i, int* counts, float* out_v,
+                              int* out_i, void* stream) {
   if (nq == 0) return 0;
+  if (k < 1 || k > kMaxK || chunks < 1 || chunks > kMaxChunks ||
+      (long long)chunks * k >= (1ll << 31) || chunk % kBN != 0 || d < 1 ||
+      row_step < 1 ||
+      (smem_lists ? cap < k + 32 : (flush_at < k + 32 ||
+                                     cap != flush_at + kBN)))
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  int config, bq, cap;
-  if (l2_topk_plan(k, &config, &bq, &cap) != 0) return -1;
-  const bool merge = chunks > 1;
-  float* pv = merge ? part_v : out_v;
-  int* pi = merge ? part_i : out_i;
-  const long long stride = (long long)chunks * k;
+  const int q_tiles = (nq + kBQ - 1) / kBQ;
+  const int blocks = q_tiles * chunks;
+  const bool vec = d % 4 == 0 && ((uintptr_t)q % 16) == 0 &&
+                   ((uintptr_t)db % 16) == 0;
   int e;
-  if (config == 0)
-    e = launch_scan<32, 2, 4>(q, db, dsq, nq, n, d, k, cap, chunk, chunks,
-                              stride, pv, pi, s);
-  else if (config == 1)
-    e = launch_scan<8, 1, 2>(q, db, dsq, nq, n, d, k, cap, chunk, chunks,
-                             stride, pv, pi, s);
+#define L2_TOPK_SCAN(V, S)                                                   \
+  launch_scan<V, S>(q, db, dsq, nq, n, d, k, cap, flush_at, chunk, q_tiles, \
+                    blocks, row_step, init_v, init_i, list_v, list_i,       \
+                    part_v, part_i, counts, s)
+  if (smem_lists)
+    e = vec ? L2_TOPK_SCAN(true, true) : L2_TOPK_SCAN(false, true);
   else
-    e = launch_scan<4, 1, 1>(q, db, dsq, nq, n, d, k, cap, chunk, chunks,
-                             stride, pv, pi, s);
-  if (e != 0 || !merge) return e;
-  const int cap2 = next_pow2(k + kThreads);
-  const int smem2 = cap2 * 8;
-  cudaError_t ce = cudaFuncSetAttribute(
-      l2_topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem2);
-  if (ce != cudaSuccess) return (int)ce;
-  l2_topk_merge_kernel<<<nq, kThreads, smem2, s>>>(part_v, part_i, stride, k,
-                                                   cap2, out_v, out_i);
+    e = vec ? L2_TOPK_SCAN(true, false) : L2_TOPK_SCAN(false, false);
+#undef L2_TOPK_SCAN
+  if (e != 0) return e;
+  l2_topk_merge_kernel<<<nq, kThreads, 0, s>>>(part_v, part_i, counts,
+                                               q_tiles, chunks, k, out_v,
+                                               out_i);
   return (int)cudaGetLastError();
 }

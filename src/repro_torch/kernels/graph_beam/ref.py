@@ -62,11 +62,18 @@ def graph_beam_ref(queries: torch.Tensor, db: torch.Tensor,
         db_sq = pairwise_sum(d * d)
     if q_sq is None:
         q_sq = pairwise_sum(q * q)
+    s = candidate_scores(q, d, safe, db_sq.float(), q_sq.float())
+    return merge_into_beam(bv, bi, s, ids, valid)
+
+
+def candidate_scores(q: torch.Tensor, d: torch.Tensor, safe: torch.Tensor,
+                     db_sq: torch.Tensor, q_sq: torch.Tensor) -> torch.Tensor:
+    """``(2 q.v - |v|^2) - |q|^2`` of the rows ``safe`` [Q, W] (valid
+    ids) of ``d`` against ``q`` [Q, d], summed by :func:`pairwise_sum`."""
     g = d[safe]                                              # [Q, W, d]
     s = 2.0 * pairwise_sum(g * q[:, None, :])
-    s = s - db_sq.float()[safe]
-    s = s - q_sq.float()[:, None]
-    return merge_into_beam(bv, bi, s, ids, valid)
+    s = s - db_sq[safe]
+    return s - q_sq[:, None]
 
 
 def merge_into_beam(bv: torch.Tensor, bi: torch.Tensor, s: torch.Tensor,
@@ -84,3 +91,94 @@ def merge_into_beam(bv: torch.Tensor, bi: torch.Tensor, s: torch.Tensor,
                        stable=True).indices[:, :bv.shape[1]]
     return canonicalize_pads(torch.gather(allv, 1, order),
                              torch.gather(alli, 1, order))
+
+
+def graph_traverse_ref(q: torch.Tensor, db: torch.Tensor,
+                       db_sq: torch.Tensor, q_sq: torch.Tensor,
+                       nbrs0: torch.Tensor, upper: torch.Tensor, entry: int,
+                       ef: int, alive: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """One query at a time, the card's traversal kernel
+    (``csrc/graph_beam.cu`` ``graph_traverse_kernel``) in its order of
+    work: the entry seed (a 1-wide merge into an empty beam), the greedy
+    descent through ``upper`` [L, N, M] (ef=1 merges; ties keep the current
+    node), then the layer-0 beam over ``nbrs0`` [N, W0] with an expanded
+    flag a beam slot carried through each merge and one "seen" bit a node.
+    Every step scores and merges as :func:`graph_beam_ref` does. ``alive``
+    (bool [N]) tombstones nodes: seen and counted, never scored. Returns
+    (beam_v [Q, ef], beam_i [Q, ef] int32, evals [Q] int64, hops [Q]
+    int32): evals as ``search_batched`` counts them, hops the layer-0
+    steps of each row."""
+    nq, n = q.shape[0], db.shape[0]
+    alive = (torch.ones(n, dtype=torch.bool) if alive is None
+             else alive.to(torch.bool).cpu())
+    nbrs0, upper = nbrs0.cpu().long(), upper.cpu().long()
+    out_v = torch.empty((nq, ef), dtype=torch.float32)
+    out_i = torch.empty((nq, ef), dtype=torch.int32)
+    evals = torch.zeros(nq, dtype=torch.int64)
+    hops = torch.zeros(nq, dtype=torch.int32)
+    for r in range(nq):
+        qr, qsq = q[r:r + 1].float(), q_sq[r:r + 1].float()
+
+        def merge(cand, bv, bi, bx):
+            """Score the candidate ids (-1 = none) and merge them into
+            (bv, bi) [e], carrying the flags bx of the beam's entries."""
+            valid = cand >= 0
+            safe = torch.where(valid, cand, 0)[None, :]
+            s = torch.where(valid, candidate_scores(
+                qr, db.float(), safe, db_sq.float(), qsq)[0],
+                torch.full(cand.shape, NEG_INF))
+            allv = torch.cat([bv, s])
+            alli = torch.cat([bi, torch.where(valid, cand, -1).int()])
+            allx = torch.cat([bx, torch.zeros(cand.shape[0],
+                                              dtype=torch.bool)])
+            order = torch.sort(allv, descending=True,
+                               stable=True).indices[:bv.shape[0]]
+            vi = alli[order]
+            return (torch.where(vi < 0, torch.full_like(allv[order], NEG_INF),
+                                allv[order]), vi, allx[order])
+
+        one = torch.zeros(1, dtype=torch.bool)
+        seed = torch.tensor([entry if bool(alive[entry]) else -1])
+        cv, ci, _ = merge(seed, torch.tensor([NEG_INF]),
+                          torch.tensor([-1], dtype=torch.int32), one)
+        n_evals = 1
+        for layer in range(upper.shape[0], 0, -1):
+            while True:
+                cur = int(ci[0])
+                nb = upper[layer - 1, cur] if cur >= 0 else \
+                    torch.full((upper.shape[2],), -1)
+                valid = nb >= 0
+                n_evals += int(valid.sum())
+                cand = torch.where(valid & alive[torch.where(valid, nb, 0)],
+                                   nb, -1)
+                cv, ci, _ = merge(cand, cv, ci, one)
+                if int(ci[0]) == cur:
+                    break
+        bv = torch.full((ef,), NEG_INF)
+        bi = torch.full((ef,), -1, dtype=torch.int32)
+        bx = torch.zeros(ef, dtype=torch.bool)
+        bv[0], bi[0] = cv[0], ci[0]
+        seen = torch.zeros(n, dtype=torch.bool)
+        if int(ci[0]) >= 0:
+            seen[int(ci[0])] = True
+        n_hops = 0
+        while True:
+            open_ = (bi >= 0) & ~bx
+            if not bool(open_.any()):
+                break
+            node = int(bi[int(torch.nonzero(open_)[0])])
+            bx = bx | (bi == node)
+            n_hops += 1
+            nb = nbrs0[node]
+            valid = nb >= 0
+            safe = torch.where(valid, nb, 0)
+            fresh = valid & ~seen[safe]
+            seen[safe[fresh]] = True
+            n_evals += int(fresh.sum())
+            bv, bi, bx = merge(torch.where(fresh & alive[safe], nb, -1),
+                               bv, bi, bx)
+        out_v[r], out_i[r] = bv, bi
+        evals[r], hops[r] = n_evals, n_hops
+    return out_v, out_i, evals, hops

@@ -3,9 +3,10 @@
 Replaces the TPU kernel ``l2_topk_pallas``
 (``src/repro/kernels/l2_topk/kernel.py``); the source file says how it is
 laid out and what bounds it. The wrapper checks what the kernel takes,
-splits the corpus into chunks so that about four blocks per SM run pass 1,
-allocates outputs and scratch, launches on PyTorch's current stream and
-raises if a launch was refused.
+schedules a pilot over a sample of the rows and the main pass
+(:func:`schedule`), plans the chunks of rows and where the survivor lists
+live (:func:`plan`), allocates the outputs and the lists, launches on PyTorch's current stream and raises if a
+launch was refused.
 """
 from __future__ import annotations
 
@@ -15,42 +16,96 @@ import functools
 import torch
 
 from .. import _build
+from .ref import GROUP
 
-_ROW_TILE = 64        # corpus rows a pass-1 block scores per step
-_BLOCKS_PER_SM = 4
+#: The kernel's geometry (``kBQ``, ``kBN``, ``kMaxK`` of the source).
+QUERY_TILE = 64
+ROW_TILE = 256
+MAX_K = 4032
+#: Shared memory of a scan block before its lists: a 3-stage ring of (64 +
+#: 256) slice rows of 36 floats, and a 256-bin histogram a warp.
+RING_SMEM = 4 * 3 * (QUERY_TILE + ROW_TILE) * 36 + 4 * 8 * 256
+#: Margin for the scan kernel's static shared memory (thresholds, counts,
+#: the block select's scalars: under 2 KB).
+STATIC_SMEM = 4096
+#: The pilot scans every PILOT_STEP-th row, when that sample holds at least
+#: 2k rows.
+PILOT_STEP = 16
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("l2_topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.l2_topk_launch.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p, p, p]
+    lib.l2_topk_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, i, i, i, i,
+                                   i, p, p, p, p, p, p, p, p]
     lib.l2_topk_launch.restype = i
-    lib.l2_topk_plan.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i),
-                                 ctypes.POINTER(i)]
-    lib.l2_topk_plan.restype = i
-    lib.l2_topk_max_k.argtypes = []
-    lib.l2_topk_max_k.restype = i
+    lib.l2_topk_scan_smem.argtypes = [i, i]
+    lib.l2_topk_scan_smem.restype = ctypes.c_longlong
+    for name in ("l2_topk_max_k", "l2_topk_query_tile", "l2_topk_row_tile"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    if (lib.l2_topk_query_tile(), lib.l2_topk_row_tile(),
+            lib.l2_topk_max_k(), lib.l2_topk_scan_smem(1, 0)) != (
+                QUERY_TILE, ROW_TILE, MAX_K, RING_SMEM):
+        raise RuntimeError("l2_topk: the library's geometry differs from "
+                           "the wrapper's")
     return lib
 
 
 def max_k() -> int:
-    """Largest k the kernel takes: its per-query candidate buffer of 4096
-    pairs in shared memory must hold k pairs plus one 64-row tile."""
-    return _lib().l2_topk_max_k()
+    """Largest k the kernel takes: pass 2 sorts a query's k pairs in one
+    block's shared memory (4096 at most)."""
+    return MAX_K
 
 
-def plan_chunks(n_queries: int, n_rows: int, k: int, query_tile: int,
-                n_sms: int) -> tuple[int, int]:
-    """(rows per chunk, chunks) for pass 1: enough (query tile, chunk)
-    blocks for about four per SM, chunks a multiple of the row tile and at
-    least 2k rows, so a chunk's k-list is mostly real candidates."""
-    q_tiles = -(-n_queries // query_tile)
-    want = max(1, -(-(_BLOCKS_PER_SM * n_sms) // q_tiles))
-    chunk = -(-max(n_rows, 1) // want)
-    chunk = max(chunk, 2 * k, _ROW_TILE)
-    chunk = -(-chunk // _ROW_TILE) * _ROW_TILE
-    return chunk, max(1, -(-n_rows // chunk))
+def list_cap(k: int) -> int:
+    """A survivor list is cut back to k pairs when it passes this many: 2k
+    + 32 (at least 128, a multiple of 32), so a cut drops at least k + 32."""
+    return max(128, -(-(2 * k + GROUP) // GROUP) * GROUP)
+
+
+def plan(n_queries: int, n_rows: int, k: int, n_sms: int,
+         smem_limit: int) -> tuple[int, int, bool, int, int]:
+    """(rows per chunk, chunks, lists in shared memory, list cap, cut
+    point) for pass 1: one block an SM, blocks = query tiles x chunks, a
+    chunk a whole number of row tiles. The 64 lists of a block stay in its
+    shared memory when they fit there (cap = cut point = :func:`list_cap`;
+    a warp cuts its own list when a group of 32 would overflow it);
+    otherwise they live in device memory with room for one more tile (cap =
+    cut point + 256), and the block cuts each list past the cut point
+    after each tile, staged in shared memory."""
+    q_tiles = -(-max(n_queries, 1) // QUERY_TILE)
+    tiles = max(1, -(-n_rows // ROW_TILE))
+    per = -(-tiles // min(max(1, n_sms // q_tiles), tiles))
+    chunk = per * ROW_TILE
+    chunks = max(1, -(-n_rows // chunk))
+    cut = list_cap(k)
+    if RING_SMEM + 8 * QUERY_TILE * cut + STATIC_SMEM <= smem_limit:
+        return chunk, chunks, True, cut, cut
+    return chunk, chunks, False, cut + ROW_TILE, cut
+
+
+def schedule(n_queries: int, n_rows: int, k: int, n_sms: int,
+             smem_limit: int) -> list[tuple[int, int, tuple]]:
+    """The launches of one call, as (scan rows, row step, :func:`plan`):
+    pilots over every ``PILOT_STEP ** j``-th row, coarsest first, for each
+    j whose sample holds 2k rows or more (at most 2), then the main pass
+    over every row. Each pass seeds its lists' thresholds with the k-th
+    pair of the pass before it: that is the k-th best of a subset of the
+    rows it scans, so a lower bound of their k-th best, and nothing it
+    drops could be in the answer. Without a seed a chunk's threshold is the
+    k-th best of the rows its list has seen, and at k = 2048 against chunks
+    of 30k rows about a third of the scores pass it; with one, about
+    ``PILOT_STEP`` * k a query."""
+    out = [(n_rows, 1, plan(n_queries, n_rows, k, n_sms, smem_limit))]
+    step = PILOT_STEP
+    while len(out) < 3 and -(-n_rows // step) >= 2 * k:
+        sample = -(-n_rows // step)
+        out.insert(0, (sample, step,
+                       plan(n_queries, sample, k, n_sms, smem_limit)))
+        step *= PILOT_STEP
+    return out
 
 
 def l2_topk_scan_cuda(q: torch.Tensor, d: torch.Tensor, d_sq: torch.Tensor,
@@ -77,29 +132,40 @@ def l2_topk_scan_cuda(q: torch.Tensor, d: torch.Tensor, d_sq: torch.Tensor,
     if dim < 1 or n >= 2 ** 31 or nq >= 2 ** 31:
         raise ValueError(f"l2_topk_scan_cuda shapes out of range: Q={nq}, "
                          f"N={n}, dim={dim}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"l2_topk kernel supports 1 <= k <= {MAX_K} (pass "
+                         f"2 sorts a query's k pairs in shared memory), got "
+                         f"k={k}")
     lib = _lib()
-    config, bq, cap = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if k < 1 or lib.l2_topk_plan(k, ctypes.byref(config), ctypes.byref(bq),
-                                 ctypes.byref(cap)) != 0:
-        raise ValueError(f"l2_topk kernel supports 1 <= k <= {max_k()} (a "
-                         f"shared-memory buffer of 4096 pairs per query "
-                         f"holds k pairs and one 64-row tile), got k={k}")
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk, chunks = plan_chunks(nq, n, k, bq.value, n_sms)
-    vals = torch.empty((nq, k), device=dev, dtype=torch.float32)
-    ids = torch.empty((nq, k), device=dev, dtype=torch.int32)
-    part_v = part_i = None
-    if chunks > 1:
-        part_v = torch.empty((nq, chunks, k), device=dev, dtype=torch.float32)
-        part_i = torch.empty((nq, chunks, k), device=dev, dtype=torch.int32)
+    props = torch.cuda.get_device_properties(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.l2_topk_launch(
-        q.data_ptr(), d.data_ptr(), d_sq.data_ptr(), nq, n, dim, k, chunk,
-        chunks, None if part_v is None else part_v.data_ptr(),
-        None if part_i is None else part_i.data_ptr(), vals.data_ptr(),
-        ids.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"l2_topk kernel launch failed (cuda error {err})")
+    seed = None
+    for n_scan, step, (chunk, chunks, smem_lists, cap, cut) in schedule(
+            nq, n, k, props.multi_processor_count,
+            props.shared_memory_per_block_optin):
+        lists = -(-nq // QUERY_TILE) * chunks * QUERY_TILE
+        vals = torch.empty((nq, k), device=dev, dtype=torch.float32)
+        ids = torch.empty((nq, k), device=dev, dtype=torch.int32)
+        part_v = torch.empty(lists * k, device=dev, dtype=torch.float32)
+        part_i = torch.empty(lists * k, device=dev, dtype=torch.int32)
+        counts = torch.empty(lists, device=dev, dtype=torch.int32)
+        list_v = list_i = None
+        if not smem_lists:
+            list_v = torch.empty(lists * cap, device=dev, dtype=torch.float32)
+            list_i = torch.empty(lists * cap, device=dev, dtype=torch.int32)
+        err = lib.l2_topk_launch(
+            q.data_ptr(), d.data_ptr(), d_sq.data_ptr(), nq, n_scan, dim, k,
+            step, None if seed is None else seed[0].data_ptr(),
+            None if seed is None else seed[1].data_ptr(), chunk, chunks,
+            int(smem_lists), cap, cut,
+            None if list_v is None else list_v.data_ptr(),
+            None if list_i is None else list_i.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), counts.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError(f"l2_topk kernel launch failed (cuda error "
+                               f"{err})")
+        seed = vals, ids
     if nq:
         _build.count_launch(l2_topk_scan_cuda)
     return vals, ids

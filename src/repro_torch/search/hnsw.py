@@ -8,15 +8,18 @@ The port of the reference's ``search/hnsw.py``. Two halves:
   for op, so from the same corpus and seed the graph comes out bitwise
   equal (``levels``, ``links0``, ``links``, ``entry``). The graph is built
   on the host: a build on the device is a feature the reference lacks.
-* **Device side, PyTorch.** :func:`search_batched` is the port of the
-  reference's one-dispatch traversal (``_traverse_impl``) as PyTorch ops on
-  the index's device: the entry seed, the greedy descent through the upper
-  layers (an ef=1 beam) and the layer-0 best-first beam are each one hop
-  per step for the whole batch. The hop is ``graph_beam`` over float32
-  rows, or ``graph_beam_q`` over a quantized payload when the graph
-  carries a :class:`GraphCodes` codec (SQ8 or PQ codes, uint8 on the
-  device); each is a hand-written CUDA kernel on the card. The loop
-  conditions are read on the host, one sync per hop.
+* **Device side.** :func:`search_batched` is the port of the reference's
+  one-dispatch traversal (``_traverse_impl``): the entry seed, the greedy
+  descent through the upper layers (an ef=1 beam) and the layer-0
+  best-first beam. On a CUDA float32 graph it is one launch of the
+  hand-written traversal kernel (``graph_traverse_cuda``, a block a query,
+  no host in the loop). Otherwise (on the CPU, with a quantized payload, or
+  with an explicit ``hop``) it runs as PyTorch ops, one hop a step for the
+  whole batch: ``graph_beam`` over float32 rows, or ``graph_beam_q`` over a
+  quantized payload when the graph carries a :class:`GraphCodes` codec
+  (SQ8 or PQ codes, uint8 on the device), each a hand-written CUDA kernel
+  on the card; there the loop conditions are read on the host, one sync a
+  hop.
 
 Not ported here: the reference's ``impl="fused"`` route of
 ``candidate_distances`` through ``l2_topk`` (one launch and one sync per
@@ -35,6 +38,7 @@ import torch
 
 from ..kernels.common import NEG_INF
 from ..kernels.graph_beam import graph_beam
+from ..kernels.graph_beam.kernel import graph_traverse_cuda
 from ..kernels.graph_beam.ref import pairwise_sum
 from ..kernels.graph_beam_q import graph_beam_q
 from . import quantize as qz
@@ -512,6 +516,12 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     order is consistent. Visited state is a ``[Q, N]`` uint8 stamp matrix
     (0 unseen, 1 seen, 2 expanded), zeroed for each search.
 
+    On a CUDA device, with no ``hop`` and no codec, the whole loop is one
+    launch of the traversal kernel (``graph_traverse_cuda``): each row runs
+    this loop's steps alone, with the same hop arithmetic, so its answer,
+    evals and layer-0 hops are the loop's; ``hops`` is their maximum, read
+    once at the end.
+
     Rows that have converged keep looping with every slot masked, a
     bitwise no-op, so a row's answer does not depend on its batch-mates.
 
@@ -543,6 +553,11 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     # a fixed sum order: a query's norm is the same alone and in a batch
     q_sq = pairwise_sum(q * q)
     cdx = graph.codec
+    if dev.type == "cuda" and hop is None and cdx is None:
+        beam_v, beam_i, evals, row_hops = graph_traverse_cuda(
+            q, vecs, vecs_sq, q_sq, nbrs0, upper, graph.entry, ef,
+            alive=mask)
+        return _finish(beam_v, beam_i, k) + (evals, int(row_hops.max()))
     if cdx is None:
         hop = graph_beam if hop is None else hop
 
@@ -622,8 +637,14 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
                               beam_i)
         hops += 1
 
+    return _finish(beam_v, beam_i, k) + (evals, hops)
+
+
+def _finish(beam_v: torch.Tensor, beam_i: torch.Tensor, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first k of the final beam, pad scores as -inf."""
     scores = beam_v[:, :k]
     ids = beam_i[:, :k]
     return (torch.where(ids >= 0, scores, torch.full_like(scores,
                                                           float("-inf"))),
-            ids, evals, hops)
+            ids)

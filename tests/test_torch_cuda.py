@@ -12,7 +12,12 @@ scores; on float inputs ids must be equal and values within 1e-4 of the
 largest magnitude (float32 sums in another order; the encoder's 3xTF32
 products on the tensor cores, about 6e-6 off), except for the
 ``graph_beam`` hop, whose kernel sums in its plain version's order and
-must agree bit for bit on every input. The ``topk_merge`` kernel orders
+must agree bit for bit on every input, and the one-launch traversal built
+on it, which must equal the loop of plain hops bit for bit (ids, scores,
+evals, hops). The ``l2_topk`` scan sums in the plain version's matmul
+order, so its scores are bit-equal too where cuBLAS sums a batch (one
+query is held against the plain version inside a batch of 64: cuBLAS sums
+a one-row product in another order). The ``topk_merge`` kernel orders
 by the plain version's keys and must agree with it bit for bit too, and
 the ``pq_adc`` and ``graph_beam_q`` kernels sum in their plain versions'
 trees (the LUT, the m looked-up entries, the SQ8 dot) and must agree bit
@@ -38,8 +43,11 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E40
 from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
-from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda  # noqa: E402
-from repro_torch.kernels.graph_beam.ref import graph_beam_ref  # noqa: E402
+from repro_torch.kernels.graph_beam import kernel as graph_beam_kernel  # noqa: E402
+from repro_torch.kernels.graph_beam.kernel import (  # noqa: E402
+    graph_beam_cuda, graph_traverse_cuda)
+from repro_torch.kernels.graph_beam.ref import (  # noqa: E402
+    graph_beam_ref, graph_traverse_ref, pairwise_sum)
 from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda  # noqa: E402
 from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref  # noqa: E402
 from repro_torch.kernels import l2_topk  # noqa: E402
@@ -53,6 +61,7 @@ from repro_torch.kernels.rae_encode.ref import rae_encode_ref  # noqa: E402
 from repro_torch.kernels import topk_merge  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_ref  # noqa: E402
+from repro_torch.search import hnsw  # noqa: E402
 
 # a string condition is evaluated when the test runs, not at import
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -197,6 +206,75 @@ def test_l2_topk_op_matches_plain(nq, n, k, metric, masked):
     _close(v, vr)
 
 
+def _scan_plain(q, db, d_sq, k):
+    """The plain scan; one query is scored inside a batch of 64 (zero
+    rows), since cuBLAS sums a one-row product in another order than a
+    batch's (about a third of the scores differ in their last bit) and
+    near-tied ids would swap."""
+    if q.shape[0] > 1:
+        return l2_topk_scan_ref(q, db, d_sq, k)
+    pad = torch.cat([q, torch.zeros(63, q.shape[1], device=q.device)])
+    v, i = l2_topk_scan_ref(pad, db, d_sq, k)
+    return v[:1], i[:1]
+
+
+# the kernel's selection at every k: one query (all blocks on one query
+# tile), 65 queries (a ragged second tile), 130 and d = 24 / d = 7 (slices
+# that end mid-way, 7: the 4-byte copies), N ragged against every tile
+@needs_card
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 2048, 4032])
+@pytest.mark.parametrize("nq,n,d", [(1, 4999, 64), (65, 70001, 64),
+                                    (130, 3001, 24), (64, 100, 7)])
+def test_l2_topk_kernel_matches_plain_every_k(nq, n, d, k):
+    q, db, d_sq = prepare(_normal(nq + k, (nq, d)).cuda(),
+                          _normal(n + k, (n, d)).cuda(), "euclidean", None)
+    v, i = l2_topk_scan_cuda(q, db, d_sq, k)
+    torch.cuda.synchronize()
+    vr, ir = _scan_plain(q, db, d_sq, k)
+    assert torch.equal(i, ir)
+    _close(v, vr)
+    # rows off a 16-byte boundary take the 4-byte copies: the same bits
+    v2, i2 = l2_topk_scan_cuda(_offset_view(q), _offset_view(db), d_sq, k)
+    assert torch.equal(i2, i) and torch.equal(v2, v)
+
+
+# every score equal (zero vectors; one row repeated), and a {-1, 0, 1}
+# corpus with dense ties: bit-equal, ties to the lower id
+@needs_card
+@pytest.mark.parametrize("k", [1, 40, 2048, 4032])
+@pytest.mark.parametrize("kind", ["zeros", "one_row", "ints"])
+def test_l2_topk_kernel_ties_bit_equal(kind, k):
+    nq, n, d = 70, 9001, 16
+    if kind == "zeros":
+        q, db = torch.zeros(nq, d), torch.zeros(n, d)
+    elif kind == "one_row":
+        q, db = _normal(1, (nq, d)), _normal(2, (1, d)).repeat(n, 1)
+    else:
+        q, db = _ints(k, (nq, d), -1, 2), _ints(k + 1, (n, d), -1, 2)
+    q, db, d_sq = prepare(q.cuda(), db.cuda(), "euclidean", None)
+    v, i = l2_topk_scan_cuda(q, db, d_sq, k)
+    torch.cuda.synchronize()
+    vr, ir = l2_topk_scan_ref(q, db, d_sq, k)
+    assert torch.equal(i, ir)
+    assert torch.equal(v, vr)
+
+
+@needs_card
+@pytest.mark.parametrize("k", [10, 64, 2048])
+def test_l2_topk_masked_rows_never_surface(k):
+    """About 2,000 of 5,003 rows live: at k = 2048 the tail is pads."""
+    nq, n = 33, 5003
+    q, db = _normal(3, (nq, 32)).cuda(), _normal(4, (n, 32)).cuda()
+    mask = (torch.rand(n, generator=torch.Generator().manual_seed(1))
+            > 0.6).cuda()
+    v, i = l2_topk(q, db, k, db_mask=mask)
+    vr, ir = l2_topk_ref(q, db, k, db_mask=mask)
+    assert torch.equal(i, ir)
+    _close(v, vr)
+    dead = torch.nonzero(~mask).flatten().to(torch.int32)
+    assert not torch.isin(i, dead).any()
+
+
 @needs_card
 def test_kernel_wrappers_reject_what_they_do_not_take():
     q, db = torch.zeros((2, 8), device="cuda"), torch.zeros((9, 8),
@@ -315,9 +393,9 @@ def test_hnsw_index_on_card_answers_like_the_cpu_index(tmp_path):
     gpu = api.HNSWIndex(m=8, ef_construction=40).build(corpus)
     gpu.save(str(tmp_path / "g"))
     cpu = api.load_index(str(tmp_path / "g"), device="cpu")
-    graph_beam_cuda.launches = 0
+    graph_traverse_cuda.launches = graph_beam_cuda.launches = 0
     got = gpu.search(queries, 10)
-    assert graph_beam_cuda.launches >= got.stats["beam_hops"] + 1
+    assert (graph_traverse_cuda.launches, graph_beam_cuda.launches) == (1, 0)
     want = cpu.search(queries, 10)
     same = np.mean([set(a) == set(b)
                     for a, b in zip(got.indices.tolist(),
@@ -331,6 +409,131 @@ def test_hnsw_index_on_card_answers_like_the_cpu_index(tmp_path):
     solo = gpu.search(queries[3:4], 10)
     np.testing.assert_array_equal(solo.indices[0], got.indices[3])
     np.testing.assert_array_equal(solo.scores[0], got.scores[3])
+
+
+@pytest.fixture(scope="module")
+def card_graph():
+    """A 1,500-node graph (d = 64, M = 8, built on the host) and 64 noisy
+    queries."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(8, 64)) * 3
+    x = (centers[rng.integers(0, 8, 1500)]
+         + rng.normal(size=(1500, 64))).astype(np.float32)
+    g = hnsw.build(x, M=8, ef_construction=40, seed=0)
+    q = (x[rng.integers(0, 1500, 64)]
+         + 0.05 * rng.normal(size=(64, 64))).astype(np.float32)
+    return g, q
+
+
+def _alive(g, tomb):
+    if not tomb:
+        return None
+    alive = np.random.default_rng(2).random(g.ntotal) > 0.3
+    alive[g.entry] = True
+    return alive
+
+
+@needs_card
+@pytest.mark.parametrize("tomb", [False, True], ids=["all", "tombstones"])
+@pytest.mark.parametrize("ef", [1, 10, 80, 4096])
+def test_graph_traversal_kernel_equals_plain_hop_loop(card_graph, ef, tomb):
+    """One launch a search; ids, scores (bit-equal), evals and hops equal
+    to the batched loop of plain hops, and to the per-query plain model
+    (each row's hops included)."""
+    g, q = card_graph
+    alive, k = _alive(g, tomb), min(10, ef)
+    graph_traverse_cuda.launches = graph_beam_cuda.launches = 0
+    got = hnsw.search_batched(g, q, k, ef_search=ef, device="cuda",
+                              alive=alive)
+    assert (graph_traverse_cuda.launches, graph_beam_cuda.launches) == (1, 0)
+    want = hnsw.search_batched(g, q, k, ef_search=ef, device="cuda",
+                               alive=alive, hop=graph_beam_ref)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3]
+    vecs, vsq, nbrs0, upper = g.pack().device_arrays(g.vecs,
+                                                     torch.device("cuda"))
+    qt = torch.as_tensor(q, device="cuda")
+    mask = None if alive is None else torch.as_tensor(alive, device="cuda")
+    kern = graph_traverse_cuda(qt, vecs, vsq, pairwise_sum(qt * qt), nbrs0,
+                               upper, g.entry, max(ef, k), alive=mask)
+    cpu = [t.cpu() for t in (qt, vecs, vsq, pairwise_sum(qt * qt), nbrs0,
+                             upper)]
+    plain = graph_traverse_ref(*cpu, g.entry, max(ef, k),
+                               alive=None if mask is None else mask.cpu())
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu(), b)
+    assert int(kern[3].max()) == got[3]
+
+
+@needs_card
+def test_graph_traversal_row_alone_equals_row_in_batch(card_graph):
+    g, q = card_graph
+    batch = hnsw.search_batched(g, q, 10, ef_search=40, device="cuda")
+    for r in (0, 17, 63):
+        solo = hnsw.search_batched(g, q[r:r + 1], 10, ef_search=40,
+                                   device="cuda")
+        for a, b in zip(solo[:3], batch[:3]):
+            assert torch.equal(a[0], b[r])
+
+
+@needs_card
+@pytest.mark.parametrize("tomb", [False, True], ids=["all", "tombstones"])
+def test_graph_traversal_visited_matrix_in_device_memory(card_graph,
+                                                         monkeypatch, tomb):
+    """The visited bits in a zeroed [Q, N/32] matrix (a graph too large
+    for shared memory) give the shared-memory answer."""
+    g, q = card_graph
+    alive = _alive(g, tomb)
+    want = hnsw.search_batched(g, q, 10, ef_search=80, device="cuda",
+                               alive=alive)
+    monkeypatch.setattr(graph_beam_kernel, "SMEM_VISITED_MAX_N", 0)
+    got = hnsw.search_batched(g, q, 10, ef_search=80, device="cuda",
+                              alive=alive)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3]
+
+
+@needs_card
+def test_graph_traversal_wide_rows_and_a_twice_listed_link(card_graph):
+    """Layer-0 rows of 320 slots (wider than the block: strided reads), the
+    first link of each row listed twice: the plain-hop loop's answer,
+    evals and hops (both copies fresh and counted, one expansion)."""
+    g, q = card_graph
+    wide = np.full((g.ntotal, 320), -1, np.int32)
+    wide[:, :g.links0.shape[1]] = g.links0
+    wide[:, -1] = g.links0[:, 0]
+    gw = hnsw.HNSWGraph(vecs=g.vecs, levels=g.levels, links0=wide,
+                        links=g.links, entry=g.entry, M=g.M)
+    got = hnsw.search_batched(gw, q, 10, ef_search=40, device="cuda")
+    want = hnsw.search_batched(gw, q, 10, ef_search=40, device="cuda",
+                               hop=graph_beam_ref)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3]
+
+
+@needs_card
+def test_graph_traversal_limits_and_launch_counter(card_graph):
+    g, q = card_graph
+    vecs, vsq, nbrs0, upper = g.pack().device_arrays(g.vecs,
+                                                     torch.device("cuda"))
+    qt = torch.as_tensor(q, device="cuda")
+    qsq = pairwise_sum(qt * qt)
+    with pytest.raises(ValueError, match="ef <= 4096"):
+        graph_traverse_cuda(qt, vecs, vsq, qsq, nbrs0, upper, g.entry, 4097)
+    wide = torch.full((g.ntotal, 1025), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="1..1024 slots"):
+        graph_traverse_cuda(qt, vecs, vsq, qsq, wide, upper, g.entry, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        graph_traverse_cuda(qt.cpu(), vecs, vsq, qsq, nbrs0, upper, g.entry,
+                            8)
+    graph_traverse_cuda.launches = 0
+    graph_traverse_cuda(qt, vecs, vsq, qsq, nbrs0, upper, g.entry, 4096)
+    graph_traverse_cuda(qt[:1], vecs, vsq, qsq[:1], nbrs0, upper[:0],
+                        g.entry, 1)
+    assert graph_traverse_cuda.launches == 2
 
 
 def _merge_case(q_n, c, seed):
