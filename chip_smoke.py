@@ -17,7 +17,8 @@ with the hand-written ``topk_merge`` kernel, rerank. ``RAE64,PQ8x8,
 Rerank4``: fit, encode, train 8 subspace codebooks, store 8-byte codes,
 scan them with the hand-written ``pq_adc`` kernel, rerank.
 ``RAE64,HNSW32,SQ8,Rerank4`` / ``RAE64,HNSW32,PQ8x8,Rerank4``: the graph
-with a code payload, every hop one hand-written ``graph_beam_q`` launch.
+with a code payload, a search one launch of the same traversal scoring the
+codes with the hand-written ``graph_beam_q`` hop's device code.
 Two model serving paths feed such an index its embeddings:
 two-tower-retrieval (the user tower's history bag through the hand-written
 ``embedding_bag`` kernel) and llama3.2-1b (prefill, and decode steps whose
@@ -26,7 +27,9 @@ Phases:
 
 1. kernels against their plain PyTorch versions on the card (the scan at
    every k up to ``max_k()`` on ragged, unaligned, tied and integer
-   inputs; the one-launch traversal against the loop of plain hops);
+   inputs; the one-launch traversals, float32 and quantized, against the
+   loop of plain hops; the ADC scan on tied codes and at every plan
+   branch);
 2. acceptance at the reference's bars on the 20k x 256 corpus: recall@10
    >= 0.9 for the Flat and IVF256 stacks, the Shard8 IVF256 stack within
    0.01 of its twin, ``RAE64,IVF256,PQ8x8,Rerank4`` >= 0.85 at <= 1/8 the
@@ -64,8 +67,12 @@ Phases:
    phase 4's reducer on its 20k x 256 corpus (cut as phase 4 is), held to
    the graph gates of ``scripts/check_bench.py`` against phase 4's f32
    stack (gather bytes per hop at least 3x / 4x fewer, recall within
-   0.01), kernel-hop traversal == plain-hop traversal, a lone query == its
-   batch row; and both kernels' times at the main path's shapes;
+   0.01), a search one quantized traversal launch equal to the plain-hop
+   loop on all 1024 noisy queries (ids, scores, evals, hops), a lone query
+   == its batch row, the card's idle share; ``pq_adc``'s time at the main
+   path's shape (and k = 2048) beside its bound and shared-memory lookup
+   ceiling, and the quantized traversal's a batch beside its bound and the
+   plain-hop loop's (the hop alone over 1M code rows too);
 7. two-tower-retrieval at its published widths (no cut: 25.6 GB of float32
    tables on the card): the serve_p99 (B=512), serve_bulk (B=262,144,
    history bags of 50) and retrieval_cand (one user against 1,000,000
@@ -80,11 +87,12 @@ Phases:
    and the decode kernel's time at both cells' shapes.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
-times ``l2_topk`` (k = 40 and 2048), a phase-4-shaped graph search (a
-256-query batch and one query), ``rae_encode``, ``flash_decode`` and the
-llama decode steps with the port in ``PARENT/src`` (a ``git archive`` of
-the parent commit) and with this tree's, in turns (parent, change, change,
-parent), each in a process of its own, on one card.
+times ``pq_adc`` (k = 320 and 2048), a phase-4-shaped graph search over
+float32 rows, an SQ8 and a PQ8x8 payload (a 256-query batch and one
+query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``, ``flash_decode``
+and the llama decode steps with the port in ``PARENT/src`` (a ``git
+archive`` of the parent commit) and with this tree's, in turns (parent,
+change, change, parent), each in a process of its own, on one card.
 
 Every launch counter is set to 0 just before phases 3 to 8 drive their
 paths and read just after; a kernel of the path that did not launch fails
@@ -310,7 +318,8 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
                              phase_kernels_traversal())
     errs["topk_merge"] = phase_kernels_topk_merge(g)
     errs["pq_adc"] = phase_kernels_pq_adc(g)
-    errs["graph_beam_q"] = phase_kernels_graph_beam_q(g)
+    errs["graph_beam_q"] = max(phase_kernels_graph_beam_q(g),
+                               phase_kernels_traversal_q())
     errs["embedding_bag"] = phase_kernels_embedding_bag(g)
     errs["flash_decode"] = phase_kernels_flash_decode(g)
     return errs
@@ -440,6 +449,85 @@ def phase_kernels_traversal() -> float:
         f"or not, visited bits in shared or device memory) == the plain-hop "
         f"loop: ids, scores, evals, hops equal; 16 rows == the per-query "
         f"plain model, each row's hops included")
+    return 0.0
+
+
+def phase_kernels_traversal_q() -> float:
+    """The one-launch quantized traversal against the loop of plain
+    quantized hops on a 2,000-node graph (d = 64, M = 8, built on the host)
+    with an SQ8 and a PQ8x8 payload, 128 noisy queries and one: ef in (10,
+    80, 4096), with and without tombstones, the visited bits in shared
+    memory and in a device matrix; ids, scores, evals and hops equal, and
+    16 rows equal to the per-query plain model, each row's hops included.
+    Returns 0 (bit-equal)."""
+    from repro_torch.kernels.graph_beam import kernel as gk
+    from repro_torch.kernels.graph_beam.ref import pairwise_sum
+    from repro_torch.kernels.graph_beam_q.kernel import graph_traverse_q_cuda
+    from repro_torch.kernels.graph_beam_q.ref import (graph_beam_q_ref,
+                                                      graph_traverse_q_ref)
+    from repro_torch.search import hnsw
+
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(8, 64)) * 3
+    x = (centers[rng.integers(0, 8, 2000)]
+         + rng.normal(size=(2000, 64))).astype(np.float32)
+    graph = hnsw.build(x, M=8, ef_construction=40, seed=0)
+    qn = (x[rng.integers(0, 2000, 128)]
+          + 0.05 * rng.normal(size=(128, 64))).astype(np.float32)
+    smem_max = gk.SMEM_VISITED_MAX_N
+    cases = 0
+    dev = torch.device("cuda")
+    try:
+        for kind in ("sq8", "pq"):
+            graph.codec = hnsw.make_graph_codes(x, kind, m=8, seed=0)
+            for ef in (10, 80, 4096):
+                for tomb in (False, True):
+                    alive = None
+                    if tomb:
+                        alive = rng.random(2000) > 0.3
+                        alive[graph.entry] = True
+                    for q in (qn, qn[5:6]):
+                        want = hnsw.search_batched(
+                            graph, q, 10, ef_search=ef, device="cuda",
+                            alive=alive, hop=graph_beam_q_ref)
+                        for limit in (smem_max, 0):
+                            gk.SMEM_VISITED_MAX_N = limit
+                            got = hnsw.search_batched(
+                                graph, q, 10, ef_search=ef, device="cuda",
+                                alive=alive)
+                            sync()
+                            cases += 1
+                            check(all(torch.equal(a, b) for a, b in
+                                      zip(got[:3], want[:3]))
+                                  and got[3] == want[3],
+                                  f"quantized traversal {kind} ef={ef} "
+                                  f"tombstones={tomb} Q={q.shape[0]} "
+                                  f"visited in shared memory={limit > 0}: "
+                                  f"differs from the plain-hop loop")
+            gk.SMEM_VISITED_MAX_N = smem_max
+            _, _, nbrs0, upper = graph.pack().device_arrays(graph.vecs, dev)
+            codes, node_bias = graph.codec.device_arrays(dev)[:2]
+            qt = torch.as_tensor(qn[:16], device="cuda")
+            q_op, q_bias = graph.codec.query_operands(qt,
+                                                      pairwise_sum(qt * qt))
+            ops = (q_op.contiguous(), q_bias.contiguous(), codes, node_bias,
+                   nbrs0, upper)
+            kern = graph_traverse_q_cuda(*ops, graph.entry, 80, kind,
+                                         graph.codec.ksub)
+            plain = graph_traverse_q_ref(*(t.cpu() for t in ops),
+                                         graph.entry, 80, kind,
+                                         graph.codec.ksub)
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(kern, plain)),
+                  f"quantized traversal kernel {kind} differs from the "
+                  f"per-query plain model")
+    finally:
+        gk.SMEM_VISITED_MAX_N = smem_max
+    log(f"phase 1: quantized graph traversal, one launch a search, {cases} "
+        f"cases (N=2000 d=64 M=8, SQ8 and PQ8x8 payloads, 128 queries and "
+        f"one, ef in (10, 80, 4096), tombstones or not, visited bits in "
+        f"shared or device memory) == the plain-hop loop: ids, scores, "
+        f"evals, hops equal; 16 rows == the per-query plain model, each "
+        f"row's hops included")
     return 0.0
 
 
@@ -600,19 +688,26 @@ def phase_kernels_flash_decode(g: torch.Generator) -> float:
 def phase_kernels_pq_adc(g: torch.Generator) -> float:
     """The ADC scan kernel against its plain version: ids equal and values
     bit-equal in every case (both sum the LUT and the m entries in one
-    tree). Ragged Q and N, k > N (the op pads), d = 1, m in {1, 8, 16},
-    ksub in {16, 256}, k up to the kernel's limit."""
+    tree). Ragged Q and N, k > N (the op pads), d = 1, m in {1, 8, 16}
+    (16: four-query tiles), ksub in {16, 256}, k up to the kernel's limit,
+    N shorter than a code tile, pilots at every k whose sample holds k
+    rows; integer and float inputs, and every row one code (every score
+    tied, the lower row first, lists cut again and again)."""
     from repro_torch.kernels.pq_adc import pq_adc
     from repro_torch.kernels.pq_adc.kernel import MAX_K
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
 
     worst, cases = 0.0, 0
-    shapes = [(100_003, 8, 256, 8, 320), (100_003, 8, 256, 8, MAX_K),
-              (100_003, 1, 16, 1, 10), (20_011, 16, 16, 4, 1),
-              (20_011, 16, 256, 2, 40), (77, 8, 256, 8, 100)]
-    for n, m, ksub, dsub, k in shapes:
+    shapes = [(100_003, 8, 256, 8, 320), (100_003, 8, 256, 8, 2048),
+              (100_003, 8, 256, 8, MAX_K), (100_003, 1, 16, 1, 10),
+              (20_011, 16, 16, 4, 1), (20_011, 16, 256, 2, 40),
+              (2_047, 8, 256, 8, 2_000), (77, 8, 256, 8, 100)]
+    for (n, m, ksub, dsub, k), tied in itertools.product(shapes,
+                                                         (False, True)):
         codes = torch.randint(0, ksub, (n, m), device="cuda", generator=g,
                               dtype=torch.uint8)
+        if tied:
+            codes[:] = codes[0]
         for integer in (True, False):
             if integer:
                 q = torch.randint(-3, 4, (257, m * dsub), device="cuda",
@@ -630,7 +725,7 @@ def phase_kernels_pq_adc(g: torch.Generator) -> float:
                 err, _ = max_rel_err(v[:, :k_eff], vr)
                 worst = max(worst, err)
                 what = (f"pq_adc Q={nq} N={n} m={m} ksub={ksub} dsub={dsub} "
-                        f"k={k} integer={integer}")
+                        f"k={k} integer={integer} tied={tied}")
                 check(torch.equal(i[:, :k_eff], ir), f"{what}: ids differ")
                 check(torch.equal(v[:, :k_eff].view(torch.int32),
                                   vr.view(torch.int32)),
@@ -640,8 +735,8 @@ def phase_kernels_pq_adc(g: torch.Generator) -> float:
                       f"{what}: the k > N tail is not (-inf, -1)")
                 cases += 1
     log(f"phase 1: pq_adc {cases} cases (Q in {{1, 257}}, (N, m, ksub, "
-        f"dsub, k) in {shapes}, integer and float inputs): ids equal and "
-        f"values bit-equal in all")
+        f"dsub, k) in {shapes}, integer and float inputs, random and tied "
+        f"codes): ids equal and values bit-equal in all")
     return worst
 
 
@@ -1890,62 +1985,91 @@ def phase_quantized_full(n: int, n_queries: int, batch: int, steps: int,
             "k": k1}
 
 
+def pq_library(q: torch.Tensor, cb: torch.Tensor, codes: torch.Tensor,
+               k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The PyTorch composite of the ADC top-k (the yardstick, never the
+    port's path): LUT by einsum, then chunked gather + sum + torch.topk
+    and a merge."""
+    nq = q.shape[0]
+    n, m = codes.shape
+    ksub, dsub = cb.shape[1], cb.shape[2]
+    offs = (codes.long() + torch.arange(m, device=codes.device) * ksub)
+    rows = 1 << 16
+    qs = q.reshape(nq, m, dsub)
+    lut = ((qs * qs).sum(-1)[:, :, None]
+           - 2 * torch.einsum("qms,mjs->qmj", qs, cb)
+           + (cb * cb).sum(-1)[None]).reshape(nq, m * ksub)
+    vals, ids = [], []
+    for s in range(0, n, rows):
+        o = offs[s:s + rows]
+        dist = lut[:, o.reshape(-1)].reshape(nq, o.shape[0], m).sum(-1)
+        v, i = torch.topk(-dist, min(k, o.shape[0]), dim=1)
+        vals.append(v)
+        ids.append(i + s)
+    v, j = torch.topk(torch.cat(vals, 1), k, dim=1)
+    return v, torch.gather(torch.cat(ids, 1), 1, j)
+
+
+def pq_bound(q: torch.Tensor, cb: torch.Tensor, codes: torch.Tensor,
+             k: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, shared-memory lookup ceiling ms) of the
+    ADC top-k: the queries, codebooks and codes read once and k pairs a
+    query written, against the LUT's FLOPs and one add a lookup; the
+    ceiling reads Q*N*m LUT entries from shared memory at 32 a clock on
+    each SM, at the card's SM clock."""
+    nq = q.shape[0]
+    n, m = codes.shape
+    ksub, dsub = cb.shape[1], cb.shape[2]
+    b_ms, b_by = bound(4.0 * nq * m * dsub + 4.0 * m * ksub * dsub
+                       + 1.0 * n * m + 8.0 * nq * k,
+                       6.0 * nq * m * ksub * dsub + 1.0 * nq * n * m)
+    props = torch.cuda.get_device_properties(0)
+    ghz = getattr(props, "clock_rate", 1_755_000) / 1e6
+    ceiling = nq * n * m / (32.0 * props.multi_processor_count * ghz * 1e9)
+    return b_ms, b_by, ceiling * 1e3
+
+
 def pq_adc_time(full: dict) -> dict:
     """The ADC scan kernel at the main path's shape (Q=256, N=1,000,003,
     m=8, ksub=256, k=320) on a real batch and the real codes: its time
-    beside its bound, its plain version's and the library composite's
-    (LUT by einsum, then chunked gather + sum + torch.topk and a merge)."""
+    beside its bound and shared-memory lookup ceiling, its plain version's
+    and the library composite's (``pq_library``); and at k = 2048, the top
+    rung of ``rerank_k1``, beside its bound."""
     from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda
     from repro_torch.kernels.pq_adc.ref import pq_adc_ref
 
     q, cb, codes, k = full["q"], full["cb"], full["codes"], full["k"]
     nq = q.shape[0]
     n, m = codes.shape
-    ksub, dsub = cb.shape[1], cb.shape[2]
+    ksub = cb.shape[1]
     kv, ki = pq_adc_cuda(q, cb, codes, k)
     pv, pi = pq_adc_ref(q, cb, codes, k)
     check(torch.equal(ki, pi) and torch.equal(kv.view(torch.int32),
                                               pv.view(torch.int32)),
           "pq_adc kernel differs from its plain version on the main batch")
-    offs = (codes.long() + torch.arange(m, device=codes.device) * ksub)
-    rows = 1 << 16
-
-    def library():
-        qs = q.reshape(nq, m, dsub)
-        lut = ((qs * qs).sum(-1)[:, :, None]
-               - 2 * torch.einsum("qms,mjs->qmj", qs, cb)
-               + (cb * cb).sum(-1)[None]).reshape(nq, m * ksub)
-        vals, ids = [], []
-        for s in range(0, n, rows):
-            o = offs[s:s + rows]
-            dist = lut[:, o.reshape(-1)].reshape(nq, o.shape[0], m).sum(-1)
-            v, i = torch.topk(-dist, min(k, o.shape[0]), dim=1)
-            vals.append(v)
-            ids.append(i + s)
-        v, j = torch.topk(torch.cat(vals, 1), k, dim=1)
-        return v, torch.gather(torch.cat(ids, 1), 1, j)
-
     ms, held_k = device_ms(lambda: pq_adc_cuda(q, cb, codes, k), reps=50)
     plain, held_p = device_ms(lambda: pq_adc_ref(q, cb, codes, k), reps=3)
-    lib, held_l = device_ms(library, reps=5)
+    lib, held_l = device_ms(lambda: pq_library(q, cb, codes, k), reps=5)
     per_call = cuda_ms(lambda: pq_adc_cuda(q, cb, codes, k), reps=20)
+    b_ms, b_by, ceiling = pq_bound(q, cb, codes, k)
     top = 2048  # the top rung of rerank_k1 (KNOB_LADDER)
-    log(f"phase 6: pq_adc Q={nq} N={n} k={top}: kernel "
-        f"{cuda_ms(lambda: pq_adc_cuda(q, cb, codes, top), 2, 1):.4f} ms")
-    b_ms, b_by = bound(4.0 * nq * m * dsub + 4.0 * m * ksub * dsub
-                       + 1.0 * n * m + 8.0 * nq * k,
-                       6.0 * nq * m * ksub * dsub + 1.0 * nq * n * m)
+    top_ms = cuda_ms(lambda: pq_adc_cuda(q, cb, codes, top), reps=10)
+    top_b, top_by, _ = pq_bound(q, cb, codes, top)
     log(f"phase 6: pq_adc Q={nq} N={n} m={m} ksub={ksub} k={k} (device "
         f"time, card held busy while enqueuing: {held_k}, {held_p}, "
         f"{held_l}): kernel {ms:.4f} ms, plain {plain:.4f} ms, einsum LUT + "
         f"chunked gather + sum + torch.topk {lib:.4f} ms, bound {b_ms:.4f} "
-        f"ms ({b_by}); one call from the host, back to back, {per_call:.4f} "
-        f"ms")
+        f"ms ({b_by}), shared-memory lookup ceiling {ceiling:.4f} ms; one "
+        f"call from the host, back to back, {per_call:.4f} ms")
+    log(f"phase 6: pq_adc Q={nq} N={n} k={top}: kernel {top_ms:.4f} ms, "
+        f"bound {top_b:.4f} ms ({top_by})")
     return {"name": "pq_adc", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/pq_adc.cu",
             "replaces": "src/repro/kernels/pq_adc/kernel.py:71",
             "launches": full["launches"], "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "lookup_ceiling_ms": ceiling,
+            "k2048": {"ms": top_ms, "bound_ms": top_b, "bound_by": top_by}}
 
 
 GRAPH_QUANT_SPECS = ("RAE64,HNSW32,SQ8,Rerank4", "RAE64,HNSW32,PQ8x8,Rerank4")
@@ -1955,14 +2079,19 @@ GATHER_FLOORS = {"SQ8": 3.0, "PQ8x8": 4.0}
 
 
 def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
-                          n_single: int = 128) -> int:
+                          n_single: int = 128) -> dict:
     """Both quantized graph stacks on the 20k x 256 corpus with phase 4's
-    reducer, held against phase 4's f32 twin; returns the main path's
-    graph_beam_q launches."""
+    reducer, held against phase 4's f32 twin: a search is one launch of the
+    quantized traversal (no hop kernel, no float32 kernel), equal to the
+    loop of plain quantized hops. Returns the main path's traversal
+    launches and, per stack, what the traversal's timing needs (the graph,
+    a reduced batch, k1, ef)."""
     from repro_torch import api
     from repro_torch.core import metrics
-    from repro_torch.kernels.graph_beam.kernel import graph_beam_cuda
-    from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda
+    from repro_torch.kernels.graph_beam.kernel import (graph_beam_cuda,
+                                                       graph_traverse_cuda)
+    from repro_torch.kernels.graph_beam_q.kernel import (
+        graph_beam_q_cuda, graph_traverse_q_cuda)
     from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
     from repro_torch.search import hnsw
@@ -1983,7 +2112,9 @@ def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
     twin_recall = GRAPH_TWIN["recall"]
     twin_bytes = twin_res.stats["gather_bytes_per_hop"]
     counters = {"rae_encode": rae_encode_cuda, "graph_beam": graph_beam_cuda,
-                "graph_beam_q": graph_beam_q_cuda}
+                "graph_traverse": graph_traverse_cuda,
+                "graph_beam_q": graph_beam_q_cuda,
+                "graph_traverse_q": graph_traverse_q_cuda}
     stacks, t_build, runs = {}, {}, {}
 
     # the main path, with every launch counter from 0
@@ -2000,20 +2131,27 @@ def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
         res = idx.search(queries, 10)
         batches, per_batch = [], []
         for s in range(0, len(noisy), batch):
-            before = graph_beam_q_cuda.launches
+            before = graph_traverse_q_cuda.launches
             r = idx.search(noisy[s:s + batch], 10)
             batches.append(r)
             per_batch.append((r.latency_s, r.stats["beam_hops"],
-                              graph_beam_q_cuda.launches - before))
+                              graph_traverse_q_cuda.launches - before))
         singles = [idx.search(noisy[i:i + 1], 10) for i in range(n_single)]
         stacks[spec] = idx
         runs[spec] = (res, batches, per_batch, singles)
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"phase 6: graph main-path launches {launches}")
-    check(launches["graph_beam_q"] > 0 and launches["rae_encode"] > 0,
+    check(launches["graph_traverse_q"] > 0 and launches["rae_encode"] > 0,
           f"a kernel of the quantized graph path never launched: {launches}")
-    check(launches["graph_beam"] == 0,
-          "a quantized graph launched the f32 hop")
+    searches = len(GRAPH_QUANT_SPECS) * (1 + -(-len(noisy) // batch)
+                                         + n_single)
+    check(launches["graph_traverse_q"] == searches
+          and all(p[2] == 1 for r in runs.values() for p in r[2])
+          and launches["graph_beam_q"] == launches["graph_beam"] == 0
+          and launches["graph_traverse"] == 0,
+          f"a quantized graph search is not one quantized traversal launch "
+          f"(with no hop and no float32 kernel): {launches}")
+    timing = {}
 
     failed = []
     for spec in GRAPH_QUANT_SPECS:
@@ -2044,10 +2182,11 @@ def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
             f"identical {reload_same}")
         log(f"phase 6: {spec}: batches of {batch}: latency ms "
             f"{[round(p[0] * 1e3, 3) for p in per_batch]}, layer-0 hops "
-            f"{[int(p[1]) for p in per_batch]}, graph_beam_q launches "
+            f"{[int(p[1]) for p in per_batch]}, graph_traverse_q launches "
             f"{[p[2] for p in per_batch]}; one query at a time: latency "
             f"median {np.median([r.latency_s for r in singles]) * 1e3:.3f} ms"
-            f" over {n_single}, == its batch row (ids) for "
+            f" (max {max(r.latency_s for r in singles) * 1e3:.3f}) over "
+            f"{n_single}, == its batch row (ids) for "
             f"{same_single}/{n_single}")
         if recall < twin_recall - 0.01:
             failed.append(f"{spec}: recall {recall} more than 0.01 below "
@@ -2063,7 +2202,7 @@ def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
             failed.append(f"{spec}: answers alone differ from the batch's, "
                           f"or are not finite, in range and full")
 
-        # the kernel-hop traversal against the plain-hop one, same graph
+        # the one-launch traversal against the plain-hop loop, same graph
         g = idx.base._g
         zq = idx.reducer.transform(torch.as_tensor(noisy, device=device))
         k1 = idx.stage1_k(10)
@@ -2072,27 +2211,107 @@ def phase_quantized_graph(device: str, steps: int = 1000, batch: int = 256,
         plain = hnsw.search_batched(g, zq, k1, ef_search=ef, device=device,
                                     hop=graph_beam_q_ref)
         agree = int((kern[1] == plain[1]).all(dim=1).sum())
-        log(f"phase 6: {spec}: kernel-hop traversal == plain-hop traversal "
+        same = (all(torch.equal(a, b) for a, b in zip(kern[:3], plain[:3]))
+                and kern[3] == plain[3])
+        log(f"phase 6: {spec}: one-launch traversal == plain-hop loop "
             f"(ids) for {agree}/{len(noisy)} queries; scores bit-equal "
             f"{bool(torch.equal(kern[0], plain[0]))}; evals equal "
             f"{bool(torch.equal(kern[2], plain[2]))}; hops {kern[3]} / "
             f"{plain[3]}")
-        if agree < len(noisy):
-            failed.append(f"{spec}: kernel and plain traversals differ")
-        wall_ms, busy, hop_ms = device_busy_share(
-            lambda: idx.search(noisy[:batch], 10), "graph_beam_q")
+        if not same:
+            failed.append(f"{spec}: the traversal kernel's ids, scores, "
+                          f"evals or hops differ from the plain-hop loop's")
+        wall_ms, busy, trav_ms = device_busy_share(
+            lambda: idx.search(noisy[:batch], 10), "graph_traverse")
+        wall1_ms, busy1, _ = device_busy_share(
+            lambda: idx.search(noisy[:1], 10), "graph_traverse")
         log(f"phase 6: {spec}: one {batch}-query search under "
             f"torch.profiler: wall {wall_ms:.3f} ms, card busy {busy:.4f} of "
-            f"it (idle share {1.0 - busy:.4f}), graph_beam_q kernels "
-            f"{hop_ms:.4f} ms of device time")
+            f"it (idle share {1.0 - busy:.4f}), graph_traverse_q kernel "
+            f"{trav_ms:.4f} ms of device time; one query: wall "
+            f"{wall1_ms:.3f} ms, idle share {1.0 - busy1:.4f}")
+        # the card's time a search from a trace of 20, over the untraced
+        # median wall (tracing stretches one search's wall several-fold)
+        card_b = traced_device_ms(lambda: idx.search(noisy[:batch], 10),
+                                  reps=20)
+        card_1 = traced_device_ms(lambda: idx.search(noisy[:1], 10), reps=20)
+        wall_b = float(np.median([p[0] for p in per_batch])) * 1e3
+        wall_1 = float(np.median([r.latency_s for r in singles])) * 1e3
+        log(f"phase 6: {spec}: the card's time a search (trace of 20): "
+            f"{card_b:.4f} ms a {batch}-query batch, {card_1:.4f} ms a query;"
+            f" over the untraced median wall ({wall_b:.3f} ms, {wall_1:.3f} "
+            f"ms): idle share {1.0 - card_b / wall_b:.4f} a batch, "
+            f"{1.0 - card_1 / wall_1:.4f} a query")
+        timing[codec] = {"graph": g, "zb": zq[:batch].contiguous(),
+                         "k1": k1, "ef": ef}
     check(not failed, "; ".join(failed))
-    return launches["graph_beam_q"]
+    return {"launches": launches["graph_traverse_q"], "timing": timing}
 
 
-def graph_beam_q_time(launches: int, g: torch.Generator) -> dict:
+def graph_beam_q_time(p6: dict, g: torch.Generator) -> dict:
+    """The ``graph_beam_q`` row: the quantized traversal kernel (the main
+    path's one launch a search) on phase 6's SQ8 graph (the kernels line)
+    and PQ8x8 graph with a 256-query batch of their reduced queries, beside
+    its bound (the code rows and biases its evals gather, the neighbour
+    rows its hops read, the operands and beams) and the loop of plain
+    quantized hops (its plain version) on the same batch; then, under
+    ``hop``, the hop kernel alone over 1M code rows (``hop_q_time``)."""
+    from repro_torch.kernels.graph_beam_q.kernel import graph_traverse_q_cuda
+    from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
+    from repro_torch.kernels.graph_beam.ref import pairwise_sum
+    from repro_torch.search import hnsw
+
+    entry = None
+    dev = torch.device("cuda")
+    for codec, t in p6["timing"].items():
+        graph, zb, k1, ef = t["graph"], t["zb"].float(), t["k1"], t["ef"]
+        cdx = graph.codec
+        _, _, nbrs0, upper = graph.pack().device_arrays(graph.vecs, dev)
+        codes, node_bias = cdx.device_arrays(dev)[:2]
+        q_op, q_bias = cdx.query_operands(zb, pairwise_sum(zb * zb))
+        q_op, q_bias = q_op.contiguous(), q_bias.contiguous()
+
+        def traverse():
+            return graph_traverse_q_cuda(q_op, q_bias, codes, node_bias,
+                                         nbrs0, upper, graph.entry, ef,
+                                         cdx.kind, cdx.ksub)
+
+        ms, held = device_ms(traverse, reps=20)
+        _, _, evals, hops = traverse()
+        plain = cuda_ms(lambda: hnsw.search_batched(
+            graph, zb, k1, ef_search=ef, device="cuda",
+            hop=graph_beam_q_ref), reps=3, warmup=1)
+        nq, c = zb.shape[0], codes.shape[1]
+        b_ms, b_by = bound(float(evals.sum()) * (c + 8.0)
+                           + float(hops.sum()) * 4.0 * nbrs0.shape[1]
+                           + 4.0 * nq * (q_op.shape[1] + 1) + 8.0 * nq * ef,
+                           float(evals.sum())
+                           * (2.0 * c if cdx.kind == "sq8" else c))
+        log(f"phase 6: quantized graph traversal {codec} Q={nq} "
+            f"N={codes.shape[0]} C={c} W={nbrs0.shape[1]} ef={ef} (device "
+            f"time, card held busy while enqueuing: {held}): kernel "
+            f"{ms:.4f} ms a batch (one launch; {int(hops.max())} layer-0 hops"
+            f" at most a row, {float(evals.sum()) / nq:.1f} evals a query), "
+            f"plain-hop loop {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if entry is None:                  # SQ8 is the kernels line
+            entry = {"name": "graph_beam_q", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/graph_beam_q.cu",
+                     "replaces": "src/repro/kernels/graph_beam_q/kernel.py:78",
+                     "launches": p6["launches"], "ms": ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "kernel": f"graph_traverse_kernel with the {codec} "
+                               f"payload: a search, one launch"}
+        else:
+            entry[codec] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                            "bound_by": b_by}
+    entry["hop"] = hop_q_time(g)
+    return entry
+
+
+def hop_q_time(g: torch.Generator) -> dict:
     """The quantized hop at the graph path's batch shape (Q=256, W=64 =
     2M at M=32, ef=80) over 1M synthetic code rows, all slots valid, for
-    SQ8 at d=64 (the kernels line) and PQ8x8: time beside the bound, the
+    SQ8 at d=64 (the figure returned) and PQ8x8: time beside the bound, the
     plain version's and the PyTorch composite's (gather, einsum or LUT
     gather + sum, torch.topk). The ids rotate through 20 random sets."""
     from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda
@@ -2150,11 +2369,8 @@ def graph_beam_q_time(launches: int, g: torch.Generator) -> dict:
             f"ms, gather + {'einsum' if mode == 'sq8' else 'LUT gather + sum'}"
             f" + torch.topk {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); one "
             f"call from the host, back to back, {per_call:.4f} ms")
-        if entry is None:                  # SQ8 d=64 is the kernels line
-            entry = {"name": "graph_beam_q", "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/graph_beam_q.cu",
-                     "replaces": "src/repro/kernels/graph_beam_q/kernel.py:78",
-                     "launches": launches, "ms": ms, "plain_ms": plain_ms,
+        if entry is None:                  # SQ8 d=64
+            entry = {"launches": 0, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
     return entry
 
@@ -2613,21 +2829,35 @@ def ab_graph(path: str) -> None:
     q = (x[rng.integers(0, c["n"], c["queries"])]
          + 0.05 * rng.normal(size=(c["queries"], c["d"]))).astype(np.float32)
     g = hnsw.build(x, M=c["m"], ef_construction=c["ef_construction"], seed=0)
+    sq8 = hnsw.make_graph_codes(x, "sq8", device="cuda")
+    pq = hnsw.make_graph_codes(x, "pq", m=8, seed=0, device="cuda")
     np.savez(path, vecs=g.vecs, levels=g.levels, links0=g.links0,
-             links=g.links, entry=g.entry, M=g.M, queries=q)
+             links=g.links, entry=g.entry, M=g.M, queries=q,
+             sq8_codes=sq8.codes, sq8_node_bias=sq8.node_bias,
+             sq8_vmin=sq8.vmin, sq8_step=sq8.step, pq_codes=pq.codes,
+             pq_node_bias=pq.node_bias, pq_codebooks=pq.codebooks)
 
 
-def graph_times(graph_path: str) -> dict:
+def graph_times(graph_path: str, payload: str = "f32") -> dict:
     """The ``AB_GRAPH`` stage-1 traversal (``search_batched``) with this
-    process's port: wall ms of a 256-query batch (median of 5) and of one
-    query (median of 64), each ending in a sync, and the card's busy share
-    of a batch."""
+    process's port, over float32 rows or the SQ8 / PQ8x8 payload trained
+    once by ``ab_graph``: wall ms of a 256-query batch (median of 5) and of
+    one query (median of 64), each ending in a sync, and the card's busy
+    share of a batch."""
     from repro_torch.search import hnsw
 
     z = np.load(graph_path)
     graph = hnsw.HNSWGraph(vecs=z["vecs"], levels=z["levels"],
                            links0=z["links0"], links=z["links"],
                            entry=int(z["entry"]), M=int(z["M"]))
+    if payload == "sq8":
+        graph.codec = hnsw.GraphCodes(
+            kind="sq8", codes=z["sq8_codes"], node_bias=z["sq8_node_bias"],
+            vmin=z["sq8_vmin"], step=z["sq8_step"])
+    elif payload == "pq":
+        graph.codec = hnsw.GraphCodes(
+            kind="pq", codes=z["pq_codes"], node_bias=z["pq_node_bias"],
+            codebooks=z["pq_codebooks"])
     qb = torch.as_tensor(z["queries"], device="cuda")
     k1, ef = AB_GRAPH["k1"], AB_GRAPH["ef"]
 
@@ -2655,18 +2885,22 @@ def graph_times(graph_path: str) -> dict:
 def redesign_times(src: str, graph_path: str) -> dict:
     """The redesigned kernels and the graph search, timed with the port
     whose ``src`` directory is given (put first on the path, its kernels
-    built from its own sources): ``l2_topk`` at the Flat path's shape (Q=256,
-    N=1M, d=64) at k = 40 and 2048 beside ``torch.matmul`` +
-    ``torch.topk``; the ``AB_GRAPH`` traversal (``graph_times``); the
-    encoder at [1M,768]@[768,64] with its ``torch.matmul``; decode_32k
-    (cut to B=32) and long_500k as phase 8 drives them, 8 greedy steps from
-    a seeded cache, each step's wall time and the card's time a step, then
-    the decode kernel at the cell's shape (``flash_decode_time``). One tree
-    a process; ``--ab`` runs two trees in turns."""
+    built from its own sources): ``pq_adc`` at the PQ path's shape (Q=256,
+    N=1,000,003, PQ8x8, seeded codes) at k = 320 and 2048 beside the
+    library composite (``pq_library``); the ``AB_GRAPH`` traversal over
+    float32 rows and its SQ8 and PQ8x8 payloads (``graph_times``);
+    ``l2_topk`` at the Flat path's shape (Q=256, N=1M, d=64) at k = 40 and
+    2048 beside ``torch.matmul`` + ``torch.topk``; the encoder at
+    [1M,768]@[768,64] with its ``torch.matmul``; decode_32k (cut to B=32)
+    and long_500k as phase 8 drives them, 8 greedy steps from a seeded
+    cache, each step's wall time and the card's time a step, then the
+    decode kernel at the cell's shape (``flash_decode_time``). One tree a
+    process; ``--ab`` runs two trees in turns."""
     sys.path.insert(0, os.path.abspath(src))
     from repro_torch.kernels import _build
 
-    _build.build(("rae_encode", "flash_decode", "l2_topk", "graph_beam"))
+    _build.build(("rae_encode", "flash_decode", "l2_topk", "graph_beam",
+                  "pq_adc", "graph_beam_q"))
     import repro_torch
     from repro_torch.configs import get_shapes
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
@@ -2675,9 +2909,22 @@ def redesign_times(src: str, graph_path: str) -> dict:
     check(os.path.abspath(repro_torch.__file__).startswith(
         os.path.abspath(src)), f"repro_torch imported from {src}")
     from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+    from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda
 
     out: dict = {"src": src}
     g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(256, 64, device="cuda", generator=g)
+    cb = torch.randn(8, 256, 8, device="cuda", generator=g)
+    codes = torch.randint(0, 256, (1_000_003, 8), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    out["pq_adc"] = {}
+    for k in (320, 2048):
+        out["pq_adc"][str(k)] = {
+            "ms": cuda_ms(lambda: pq_adc_cuda(q, cb, codes, k), reps=10),
+            "library_ms": cuda_ms(lambda: pq_library(q, cb, codes, k),
+                                  reps=3)}
+    del q, cb, codes
+    free_card()
     q = torch.randn(256, 64, device="cuda", generator=g)
     d = torch.randn(1_000_000, 64, device="cuda", generator=g)
     d_sq = (d * d).sum(1)
@@ -2690,6 +2937,8 @@ def redesign_times(src: str, graph_path: str) -> dict:
     del q, d, d_sq
     free_card()
     out["graph"] = graph_times(graph_path)
+    out["graph_sq8"] = graph_times(graph_path, "sq8")
+    out["graph_pq"] = graph_times(graph_path, "pq")
     rows, n, m = 1_000_000, 768, 64
     x = torch.randn(rows, n, device="cuda", generator=g)
     w = torch.randn(n, m, device="cuda", generator=g) / n ** 0.5
@@ -2762,6 +3011,17 @@ def ab(parent_src: str) -> int:
         res["label"] = label
         runs.append(res)
         enc, gr = res["rae_encode"], res["graph"]
+        log(f"{label} ({src}): pq_adc Q=256 N=1,000,003 PQ8x8 "
+            + ", ".join(f"k={k} {v['ms']:.4f} ms (library "
+                        f"{v['library_ms']:.4f})"
+                        for k, v in res["pq_adc"].items())
+            + "; " + "; ".join(
+                f"graph {name}: batch {res[key]['batch_ms']:.3f} ms (idle "
+                f"share {res[key]['batch_idle_share']:.4f}, "
+                f"{res[key]['hops']} hops), one query "
+                f"{res[key]['single_ms']:.3f} ms"
+                for name, key in (("SQ8", "graph_sq8"),
+                                  ("PQ8x8", "graph_pq"))))
         log(f"{label} ({src}): l2_topk Q=256 N=1M d=64 "
             + ", ".join(f"k={k} {v['ms']:.4f} ms (matmul + topk "
                         f"{v['library_ms']:.4f})"
@@ -2892,10 +3152,11 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="PARENT_SRC",
-                    help="time l2_topk, the graph traversal, rae_encode, "
-                         "flash_decode and the decode steps with the parent "
-                         "tree's src directory and this one's, in turns, "
-                         "and run nothing else")
+                    help="time pq_adc, the graph traversals (float32, "
+                         "SQ8, PQ8x8), l2_topk, rae_encode, flash_decode and "
+                         "the decode steps with the parent tree's src "
+                         "directory and this one's, in turns, and run "
+                         "nothing else")
     ap.add_argument("--times", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--graph", metavar="NPZ", help=argparse.SUPPRESS)
     args = ap.parse_args()

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch header, so
 ``nvcc`` turns it into a shared library in seconds (with PyTorch's headers,
 through ``torch.utils.cpp_extension``, a build takes minutes). Libraries go to
-``kernels/build/`` (git-ignored), named by a hash of the source and the
-flags, so an edited source is rebuilt and a stale library never loads.
+``kernels/build/`` (git-ignored), named by a hash of the flags, the source and
+the headers it includes (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library never loads.
 Nothing here runs at import: the CPU-only test run imports every module.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -23,6 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("rae_encode", "l2_topk", "graph_beam", "topk_merge", "pq_adc",
            "graph_beam_q", "embedding_bag", "flash_decode")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,10 +44,28 @@ def _nvcc() -> str:
     return path
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header it includes with quotes, read
+    recursively (each once)."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / m.group(1) for m in
+                 _INCLUDE.finditer(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    """The library's path, named by a hash of the flags, the source and the
+    headers it includes: editing a shared header rebuilds every kernel that
+    includes it."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:

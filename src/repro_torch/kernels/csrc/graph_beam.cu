@@ -30,16 +30,17 @@
 // The beam must be sorted descending (the traversal keeps it so); beam
 // slots with id < 0 are read as NEG_INF, which changes no output.
 //
-// graph_traverse_kernel (below) runs a whole search for one query a block
-// from the same three device functions (score_slots, rank_sort,
-// co_rank_merge): the entry seed, the descent through the upper layers and
-// the layer-0 beam, with no host in the loop. The batched traversal of
-// search/hnsw.py launched one hop a step and read the loop condition on the
-// host after each (about 100 launches and syncs a search, the card mostly
-// idle); here a search is one launch, and its time is the device time of
-// its hops: each a dependent gather (a neighbour row, then its rows), so
-// the bound is bytes, evals * (4d + 4) plus the beams, and the latency of
-// the gathers is what the block waits on.
+// graph_traverse_kernel (graph_traverse.cuh, shared with the quantized
+// graphs of graph_beam_q.cu) runs a whole search for one query a block
+// from the same three device functions (score_slots here, rank_sort and
+// co_rank_merge there): the entry seed, the descent through the upper
+// layers and the layer-0 beam, with no host in the loop. The batched
+// traversal of search/hnsw.py launched one hop a step and read the loop
+// condition on the host after each (about 100 launches and syncs a
+// search, the card mostly idle); here a search is one launch, and its time
+// is the device time of its hops: each a dependent gather (a neighbour
+// row, then its rows), so the bound is bytes, evals * (4d + 4) plus the
+// beams, and the latency of the gathers is what the block waits on.
 //
 // Bound: bytes. A hop reads Q*W*(4d + 8) bytes of gathered rows, norms and
 // ids, and 16*Q*ef bytes of beam in and out, against about 2*Q*W*d FLOPs:
@@ -47,37 +48,9 @@
 // at random, so each 256-byte row costs a full DRAM latency; the design
 // keeps four row loads in flight per warp and eight warps per block to
 // hide it. Ids must be < N: an id >= N is treated as masked, never read.
-#include <cuda_runtime.h>
+#include "graph_traverse.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;         // candidate rows in flight per warp
-constexpr float kNegInf = -1e30f;  // NEG_INF of kernels/common.py
-constexpr int kMaxW = 1024;
-constexpr int kMaxEf = 4096;
-constexpr int kMaxLevels = 20;     // log2 of the largest per-lane block + 1
-
-// #{i : a[i] > x} for a sorted descending
-__device__ __forceinline__ int count_gt(const float* a, int len, float x) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] > x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// #{i : a[i] >= x} for a sorted descending
-__device__ __forceinline__ int count_ge(const float* a, int len, float x) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] >= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // Lane `lane`'s part of the dot product of q (shared memory) and one corpus
 // row: the balanced pairwise sum of the rounded products of its aligned
@@ -113,7 +86,8 @@ __device__ __forceinline__ float lane_sum(const float* qs, const float* row,
 // masked) against q (shared memory): cv[slot] = (2 q.v - |v|^2) - |q|^2 in
 // the plain version's order, or NEG_INF and id -1 for a masked slot. Each
 // warp scores kUnroll slots at a time, lane_sum and a shuffle tree a row.
-// The one place a row's payload is read: a code payload replaces this.
+// The one place a row's payload is read (graph_beam_q.cu's score_slots_q
+// is the code payloads' counterpart).
 __device__ __forceinline__ void score_slots(const float* qs,
                                             const float* __restrict__ db,
                                             const float* __restrict__ db_sq,
@@ -161,53 +135,6 @@ __device__ __forceinline__ void score_slots(const float* qs,
   }
 }
 
-// Stable rank sort of the w candidates: (score desc, slot asc) into sv, si.
-__device__ __forceinline__ void rank_sort(const float* cv, const int* ci,
-                                          int w, float* sv, int* si) {
-  for (int j = threadIdx.x; j < w; j += kThreads) {
-    const float v = cv[j];
-    int rank = 0;
-    for (int i = 0; i < w; ++i) {
-      const float u = cv[i];
-      rank += (u > v) || (u == v && i < j);
-    }
-    sv[rank] = v;
-    si[rank] = ci[j];
-  }
-}
-
-// Co-rank merge of the sorted candidates (sv, si) [w] and the beam (bvs:
-// values with pads read as NEG_INF, bi: ids) [ef] into (ov, oi) [ef]: beam
-// entry i lands at i + #{cand > beam[i]}, candidate j at j + #{beam >=
-// cand[j]}, positions >= ef dropped. bx/ox (or null): a flag a beam entry
-// carries through the merge; a candidate enters with 0.
-__device__ __forceinline__ void co_rank_merge(const float* sv, const int* si,
-                                              int w, const float* bvs,
-                                              const int* bi, const int* bx,
-                                              int ef, float* ov, int* oi,
-                                              int* ox) {
-  for (int i = threadIdx.x; i < ef; i += kThreads) {
-    const float b = bvs[i];
-    const int p = i + count_gt(sv, w, b);
-    if (p < ef) {
-      const int id = bi[i];
-      ov[p] = id < 0 ? kNegInf : b;
-      oi[p] = id;
-      if (ox) ox[p] = bx[i];
-    }
-  }
-  for (int j = threadIdx.x; j < w; j += kThreads) {
-    const float c = sv[j];
-    const int p = j + count_ge(bvs, ef, c);
-    if (p < ef) {
-      const int id = si[j];
-      ov[p] = id < 0 ? kNegInf : c;
-      oi[p] = id;
-      if (ox) ox[p] = 0;
-    }
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 graph_beam_kernel(const float* __restrict__ q, const float* __restrict__ db,
                   const float* __restrict__ db_sq,
@@ -241,186 +168,24 @@ graph_beam_kernel(const float* __restrict__ q, const float* __restrict__ db,
                 out_i + (size_t)r * ef, nullptr);
 }
 
-// The whole traversal of one query a block, with no host in the loop, in
-// the order of search_batched's loop for one row: the entry seed (a 1-wide
-// merge of the entry into an empty beam), the greedy descent through every
-// upper layer (each step an ef=1 merge of the current node's neighbours;
-// ties keep the current node, so the step moves only on a strictly better
-// one), then the layer-0 best-first beam: expand the first entry of the
-// beam not yet expanded, score its neighbours not yet seen, merge them in;
-// until no entry is left unexpanded. Each step is the hop's score_slots,
-// rank_sort and co_rank_merge, so every score and merge is bit for bit the
-// plain hop's. The beam stays in shared memory with an expanded flag a slot
-// (carried through the merge), so picking the next node reads nothing
-// global. Visited state is one bit a node ("seen"): in shared memory, or,
-// when vis_g is given, in its row of a [Q, words] bit matrix the caller
-// zeroed. A node enters the beam only in the step that first sees it (twice
-// only if its id is in a row twice), and expanding it flags every slot that
-// holds it, so seen plus the flag is search_batched's stamp (0 unseen, 1
-// seen, 2 expanded). Tombstoned nodes (alive[id] == 0) are seen and counted but
-// never scored. evals as search_batched counts them: 1 for the seed, the
-// valid neighbours of each descent step, the fresh ones of each layer-0
-// step; hops: the layer-0 steps.
-__global__ void __launch_bounds__(kThreads)
-graph_traverse_kernel(const float* __restrict__ q,
-                      const float* __restrict__ db,
-                      const float* __restrict__ db_sq,
-                      const float* __restrict__ q_sq,
-                      const int* __restrict__ nbrs0,
-                      const int* __restrict__ upper,
-                      const unsigned char* __restrict__ alive, int n, int d,
-                      int w0, int m, int levels, int entry, int ef,
-                      unsigned* __restrict__ vis_g, int words,
-                      float* __restrict__ out_v, int* __restrict__ out_i,
-                      long long* __restrict__ evals_out,
-                      int* __restrict__ hops_out) {
-  extern __shared__ float smem[];
-  const int wmax = w0 > m ? w0 : m;
-  float* qs = smem;                        // [d]
-  float* av = qs + d;                      // beam A [ef]: values, ids, flags
-  int* ai = (int*)(av + ef);
-  int* ax = ai + ef;
-  float* bv = (float*)(ax + ef);           // beam B [ef]
-  int* bi = (int*)(bv + ef);
-  int* bx = bi + ef;
-  float* cv = (float*)(bx + ef);           // [wmax] candidates, slot order
-  int* ci = (int*)(cv + wmax);
-  float* sv = (float*)(ci + wmax);         // [wmax] sorted
-  int* si = (int*)(sv + wmax);
-  int* cid = si + wmax;                    // [wmax] ids to score
-  unsigned* vis = (unsigned*)(cid + wmax); // [words] when vis_g is null
-  __shared__ float dv[2];                  // the descent's 1-wide beams
-  __shared__ int di[2];
-  __shared__ int s_pick, s_evals;
-
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31;
-  if (vis_g) vis = vis_g + (size_t)r * words;
-  else
-    for (int t = tid; t < words; t += kThreads) vis[t] = 0u;
-  for (int k = tid; k < d; k += kThreads) qs[k] = q[(size_t)r * d + k];
-  const float qsq = q_sq[r];
-  if (tid == 0) {
-    s_evals = 1;
-    dv[0] = kNegInf;
-    di[0] = -1;
-    cid[0] = (alive == nullptr || alive[entry]) ? entry : -1;
+// The float32 payload of the traversal: q [Q, d] staged, |q|^2 the bias,
+// score_slots over the corpus rows.
+struct F32Rows {
+  const float* q;
+  const float* db;
+  const float* db_sq;
+  const float* q_sq;
+  int dop;   // d
+  __device__ const float* operand(int r) const { return q + (size_t)r * dop; }
+  __device__ float bias(int r) const { return q_sq[r]; }
+  __device__ void score(const float* qs, float qb, const int* ids, int w,
+                        int n, float* cv, int* ci) const {
+    score_slots(qs, db, db_sq, qb, ids, w, n, dop, cv, ci);
   }
-  __syncthreads();
-
-  // entry seed: a 1-wide merge of the entry into an empty beam
-  score_slots(qs, db, db_sq, qsq, cid, 1, n, d, cv, ci);
-  __syncthreads();
-  rank_sort(cv, ci, 1, sv, si);
-  __syncthreads();
-  co_rank_merge(sv, si, 1, dv, di, nullptr, 1, dv + 1, di + 1, nullptr);
-  __syncthreads();
-  if (tid == 0) {
-    dv[0] = dv[1];
-    di[0] = di[1];
-  }
-  __syncthreads();
-
-  // upper layers: greedy descent, each step an ef=1 merge
-  for (int layer = levels; layer >= 1; --layer) {
-    const int* adj = upper + (size_t)(layer - 1) * n * m;
-    for (;;) {
-      const int cur = di[0];
-      for (int t = tid; t < m; t += kThreads) {
-        const int nb = cur >= 0 ? adj[(size_t)cur * m + t] : -1;
-        if (nb >= 0) atomicAdd(&s_evals, 1);
-        cid[t] = (nb >= 0 && (alive == nullptr || alive[nb])) ? nb : -1;
-      }
-      __syncthreads();
-      score_slots(qs, db, db_sq, qsq, cid, m, n, d, cv, ci);
-      __syncthreads();
-      rank_sort(cv, ci, m, sv, si);
-      __syncthreads();
-      co_rank_merge(sv, si, m, dv, di, nullptr, 1, dv + 1, di + 1, nullptr);
-      __syncthreads();
-      const bool moved = di[1] != cur;
-      __syncthreads();
-      if (tid == 0) {
-        dv[0] = dv[1];
-        di[0] = di[1];
-      }
-      __syncthreads();
-      if (!moved) break;
-    }
-  }
-
-  // layer 0: best-first beam
-  for (int i = tid; i < ef; i += kThreads) {
-    av[i] = i == 0 ? dv[0] : kNegInf;
-    ai[i] = i == 0 ? di[0] : -1;
-    ax[i] = 0;
-  }
-  if (tid == 0 && di[0] >= 0) vis[di[0] >> 5] |= 1u << (di[0] & 31);
-  __syncthreads();
-  int hops = 0;
-  for (;;) {
-    if (tid < 32) {   // the first slot holding a node not yet expanded
-      int pick = -1;
-      for (int base = 0; base < ef; base += 32) {
-        const int i = base + lane;
-        const bool open = i < ef && ai[i] >= 0 && ax[i] == 0;
-        const unsigned b = __ballot_sync(0xffffffffu, open);
-        if (b) {
-          pick = base + __ffs(b) - 1;
-          break;
-        }
-      }
-      if (lane == 0) s_pick = pick;
-    }
-    __syncthreads();
-    const int pick = s_pick;
-    if (pick < 0) break;
-    const int node = ai[pick];
-    ++hops;
-    for (int t = tid; t < w0; t += kThreads) {   // the fresh neighbours
-      const int nb = nbrs0[(size_t)node * w0 + t];
-      cid[t] = nb >= 0 && !((vis[nb >> 5] >> (nb & 31)) & 1u) ? nb : -1;
-    }
-    __syncthreads();   // every slot read its bit before any is set
-    for (int i = tid; i < ef; i += kThreads)   // the node's stamp: expanded
-      if (ai[i] == node) ax[i] = 1;
-    for (int t = tid; t < w0; t += kThreads) {
-      const int nb = cid[t];
-      if (nb >= 0) {
-        atomicOr(&vis[nb >> 5], 1u << (nb & 31));
-        atomicAdd(&s_evals, 1);
-        if (alive != nullptr && !alive[nb]) cid[t] = -1;
-      }
-    }
-    __syncthreads();
-    score_slots(qs, db, db_sq, qsq, cid, w0, n, d, cv, ci);
-    __syncthreads();
-    rank_sort(cv, ci, w0, sv, si);
-    __syncthreads();
-    co_rank_merge(sv, si, w0, av, ai, ax, ef, bv, bi, bx);
-    __syncthreads();
-    float* tv = av; av = bv; bv = tv;
-    int* ti = ai; ai = bi; bi = ti;
-    ti = ax; ax = bx; bx = ti;
-  }
-  for (int i = tid; i < ef; i += kThreads) {
-    out_v[(size_t)r * ef + i] = av[i];
-    out_i[(size_t)r * ef + i] = ai[i];
-  }
-  if (tid == 0) {
-    evals_out[r] = s_evals;
-    hops_out[r] = hops;
-  }
-}
+};
 
 size_t smem_bytes(int d, int w, int ef) {
   return sizeof(float) * ((size_t)d + ef + 4 * (size_t)w);
-}
-
-size_t traverse_smem(int d, int w0, int m, int ef, int smem_words) {
-  const size_t wmax = w0 > m ? w0 : m;
-  return sizeof(float) * ((size_t)d + 6 * (size_t)ef + 5 * wmax) +
-         sizeof(unsigned) * (size_t)smem_words;
 }
 
 }  // namespace
@@ -468,20 +233,8 @@ extern "C" int graph_traverse_launch(
     int n, int d, int w0, int m, int levels, int entry, int ef,
     unsigned* vis_g, float* out_v, int* out_i, long long* evals,
     int* hops, void* stream) {
-  if (nq == 0) return 0;
-  if (d < 1 || w0 < 1 || w0 > kMaxW || m > kMaxW || (levels > 0 && m < 1) ||
-      ef < 1 || ef > kMaxEf || entry < 0 || entry >= n)
-    return -1;
-  const int words = (n + 31) / 32;
-  const size_t smem = traverse_smem(d, w0, m, ef, vis_g ? 0 : words);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        graph_traverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  graph_traverse_kernel<<<nq, kThreads, smem, (cudaStream_t)stream>>>(
-      q, db, db_sq, q_sq, nbrs0, upper, alive, n, d, w0, m, levels, entry,
-      ef, vis_g, words, out_v, out_i, evals, hops);
-  return (int)cudaGetLastError();
+  const F32Rows pay{q, db, db_sq, q_sq, d};
+  return traverse_launch(pay, nbrs0, upper, alive, nq, n, w0, m, levels,
+                         entry, ef, vis_g, out_v, out_i, evals, hops,
+                         (cudaStream_t)stream);
 }

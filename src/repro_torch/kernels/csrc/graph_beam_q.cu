@@ -1,5 +1,5 @@
-// One quantized HNSW traversal hop for Hopper (sm_90a): gather code rows,
-// score, beam merge.
+// The quantized HNSW traversal for Hopper (sm_90a): one hop (gather code
+// rows, score, beam merge), and the whole search of one query a block.
 //
 // For each query row r: gather the code rows named by nbr_ids[r, :W] (id < 0
 // = masked slot) and score each
@@ -19,8 +19,9 @@
 // (src/repro/kernels/graph_beam_q/kernel.py:78), whose grid runs in order
 // over (query, slot), DMAs one int32-widened code row a step into VMEM,
 // contracts a PQ row through a one-hot [m, ksub] expansion on the MXU, and
-// merges by ef sweeps of max/argmax/mask. This kernel is csrc/graph_beam.cu
-// with another gather and score:
+// merges by ef sweeps of max/argmax/mask; and the reference's one-dispatch
+// _traverse_impl around it (src/repro/search/hnsw.py:932). This file is
+// csrc/graph_beam.cu with another gather and score:
 //   1. q_op (d floats for SQ8, the m * ksub LUT for PQ: 8 KB at PQ8x8) and
 //      the beam's values are staged in shared memory;
 //   2. each code row of width C is scored by G = min(next_pow2(C), 32)
@@ -31,45 +32,24 @@
 //      tree of pairwise_sum over the row, so kernel and plain version agree
 //      bit for bit. Codes stay uint8: a lane reads its c bytes;
 //   3. the rank sort of the W scores and the co-rank merge with the beam
-//      are graph_beam.cu's.
+//      are graph_traverse.cuh's, as in graph_beam.cu.
+// graph_traverse_kernel (graph_traverse.cuh) runs the whole search with
+// score_slots_q as its payload's score: one launch a search, the f32
+// graph's traversal step for step, with code rows in place of float32
+// rows, and no host in the loop.
 //
 // Bound: bytes. A hop reads Q*W*(C + 8) bytes of gathered codes, biases
 // and ids (C = 64 at SQ8 d=64, 8 at PQ8x8) and 16*Q*ef bytes of beam in
-// and out, against about 2*Q*W*C operations. The rows are gathered at
-// random, so each row costs a DRAM latency; several rows are in flight per
-// warp to hide it. Ids must be < N: an id >= N is treated as masked. A PQ
-// code must be < ksub; a larger one reads 0 in the last subspace and the
-// next subspace's entry in the others (the plain version then raises or
-// reads the same entry).
-#include <cuda_runtime.h>
+// and out, against about 2*Q*W*C operations; a search reads evals * (C + 4)
+// bytes of codes and biases, the neighbour rows of its hops and its beam.
+// The rows are gathered at random, so each row costs a DRAM latency;
+// several rows are in flight per warp to hide it. Ids must be < N: an id >=
+// N is treated as masked. A PQ code must be < ksub; a larger one reads 0 in
+// the last subspace and the next subspace's entry in the others (the plain
+// version then raises or reads the same entry).
+#include "graph_traverse.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;         // row groups in flight per warp
-constexpr float kNegInf = -1e30f;  // NEG_INF of kernels/common.py
-constexpr int kMaxW = 1024;
-constexpr int kMaxEf = 4096;
-constexpr int kMaxLevels = 20;     // log2 of the largest per-lane block + 1
-
-__device__ __forceinline__ int count_gt(const float* a, int len, float x) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] > x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int count_ge(const float* a, int len, float x) {
-  int lo = 0, hi = len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] >= x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // One term of the contraction: the t-th element of the row's sum.
 template <bool kPq>
@@ -103,44 +83,22 @@ __device__ __forceinline__ float lane_sum(const float* qop,
   return part[31 - __clz(chunk)];
 }
 
+// Score the w candidate slots whose ids are at ids[0, w) (id < 0 or >= n:
+// masked) against the staged operand qs: cv[slot] = (contract + qb) -
+// node_bias[id] in the plain version's order, or NEG_INF and id -1 for a
+// masked slot. The code payloads' score_slots.
 template <bool kPq>
-__global__ void __launch_bounds__(kThreads)
-graph_beam_q_kernel(const float* __restrict__ q_op,
-                    const float* __restrict__ q_bias,
-                    const unsigned char* __restrict__ codes,
-                    const float* __restrict__ node_bias,
-                    const int* __restrict__ nbr, const float* __restrict__ bv,
-                    const int* __restrict__ bi, float* __restrict__ out_v,
-                    int* __restrict__ out_i, int n, int c, int dop, int ksub,
-                    int w, int ef) {
-  extern __shared__ float smem[];
-  float* qs = smem;              // [dop]
-  float* bvs = qs + dop;         // [ef] beam values, pads read as NEG_INF
-  float* cv = bvs + ef;          // [w] candidate scores, slot order
-  int* ci = (int*)(cv + w);      // [w] candidate ids, slot order
-  float* sv = (float*)(ci + w);  // [w] scores, sorted
-  int* si = (int*)(sv + w);      // [w] ids, sorted
-
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
+__device__ __forceinline__ void score_slots_q(
+    const float* qs, const unsigned char* __restrict__ codes,
+    const float* __restrict__ node_bias, float qb, const int* ids, int w,
+    int n, int c, int dop, int ksub, float* cv, int* ci) {
   int width = 1;                 // next_pow2(c)
   while (width < c) width <<= 1;
   const int g = width < 32 ? width : 32;  // lanes per row
   const int chunk = width / g;            // terms per lane
   const int per_warp = 32 / g;            // rows a warp scores at once
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % g, grp = lane / g;
-  const float* qrow = q_op + (size_t)r * dop;
-  const int* ids_row = nbr + (size_t)r * w;
-  const float* bv_row = bv + (size_t)r * ef;
-  const int* bi_row = bi + (size_t)r * ef;
-
-  for (int k = tid; k < dop; k += kThreads) qs[k] = qrow[k];
-  for (int i = tid; i < ef; i += kThreads)
-    bvs[i] = bi_row[i] < 0 ? kNegInf : bv_row[i];
-  __syncthreads();
-
-  const float qb = q_bias[r];
   const int span = kUnroll * per_warp;    // slots a warp takes per pass
   for (int base = warp * span; base < w; base += kWarps * span) {
     int id[kUnroll];
@@ -148,7 +106,7 @@ graph_beam_q_kernel(const float* __restrict__ q_op,
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int slot = base + u * per_warp + grp;
-      const int v = slot < w ? ids_row[slot] : -1;
+      const int v = slot < w ? ids[slot] : -1;
       id[u] = (v >= 0 && v < n) ? v : -1;
     }
 #pragma unroll
@@ -177,42 +135,64 @@ graph_beam_q_kernel(const float* __restrict__ q_op,
       }
     }
   }
-  __syncthreads();
-
-  // stable rank sort of the candidates: (score desc, slot asc)
-  for (int j = tid; j < w; j += kThreads) {
-    const float v = cv[j];
-    int rank = 0;
-    for (int i = 0; i < w; ++i) {
-      const float u = cv[i];
-      rank += (u > v) || (u == v && i < j);
-    }
-    sv[rank] = v;
-    si[rank] = ci[j];
-  }
-  __syncthreads();
-
-  float* ov = out_v + (size_t)r * ef;
-  int* oi = out_i + (size_t)r * ef;
-  for (int i = tid; i < ef; i += kThreads) {
-    const float b = bvs[i];
-    const int p = i + count_gt(sv, w, b);
-    if (p < ef) {
-      const int id = bi_row[i];
-      ov[p] = id < 0 ? kNegInf : b;
-      oi[p] = id;
-    }
-  }
-  for (int j = tid; j < w; j += kThreads) {
-    const float v = sv[j];
-    const int p = j + count_ge(bvs, ef, v);
-    if (p < ef) {
-      const int id = si[j];
-      ov[p] = id < 0 ? kNegInf : v;
-      oi[p] = id;
-    }
-  }
 }
+
+template <bool kPq>
+__global__ void __launch_bounds__(kThreads)
+graph_beam_q_kernel(const float* __restrict__ q_op,
+                    const float* __restrict__ q_bias,
+                    const unsigned char* __restrict__ codes,
+                    const float* __restrict__ node_bias,
+                    const int* __restrict__ nbr, const float* __restrict__ bv,
+                    const int* __restrict__ bi, float* __restrict__ out_v,
+                    int* __restrict__ out_i, int n, int c, int dop, int ksub,
+                    int w, int ef) {
+  extern __shared__ float smem[];
+  float* qs = smem;              // [dop]
+  float* bvs = qs + dop;         // [ef] beam values, pads read as NEG_INF
+  float* cv = bvs + ef;          // [w] candidate scores, slot order
+  int* ci = (int*)(cv + w);      // [w] candidate ids, slot order
+  float* sv = (float*)(ci + w);  // [w] scores, sorted
+  int* si = (int*)(sv + w);      // [w] ids, sorted
+
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float* qrow = q_op + (size_t)r * dop;
+  const int* bi_row = bi + (size_t)r * ef;
+  const float* bv_row = bv + (size_t)r * ef;
+
+  for (int k = tid; k < dop; k += kThreads) qs[k] = qrow[k];
+  for (int i = tid; i < ef; i += kThreads)
+    bvs[i] = bi_row[i] < 0 ? kNegInf : bv_row[i];
+  __syncthreads();
+  score_slots_q<kPq>(qs, codes, node_bias, q_bias[r], nbr + (size_t)r * w, w,
+                     n, c, dop, ksub, cv, ci);
+  __syncthreads();
+  rank_sort(cv, ci, w, sv, si);
+  __syncthreads();
+  co_rank_merge(sv, si, w, bvs, bi_row, nullptr, ef, out_v + (size_t)r * ef,
+                out_i + (size_t)r * ef, nullptr);
+}
+
+// The code payload of the traversal: q_op [Q, dop] staged, q_bias the
+// bias, score_slots_q over the code rows.
+template <bool kPq>
+struct CodeRows {
+  const float* q_op;
+  const float* q_bias;
+  const unsigned char* codes;
+  const float* node_bias;
+  int dop, c, ksub;
+  __device__ const float* operand(int r) const {
+    return q_op + (size_t)r * dop;
+  }
+  __device__ float bias(int r) const { return q_bias[r]; }
+  __device__ void score(const float* qs, float qb, const int* ids, int w,
+                        int n, float* cv, int* ci) const {
+    score_slots_q<kPq>(qs, codes, node_bias, qb, ids, w, n, c, dop, ksub, cv,
+                       ci);
+  }
+};
 
 size_t smem_bytes(int dop, int w, int ef) {
   return sizeof(float) * ((size_t)dop + ef + 4 * (size_t)w);
@@ -236,6 +216,14 @@ int launch(const float* q_op, const float* q_bias, const unsigned char* codes,
   return (int)cudaGetLastError();
 }
 
+// The operand width a mode takes: 0 = sq8 (dop == c), 1 = pq (dop == c *
+// ksub). False for a mode or width out of range.
+bool mode_ok(int mode, int c, int dop, int ksub) {
+  if (c < 1) return false;
+  if (mode == 0) return dop == c;
+  return mode == 1 && ksub >= 1 && (long long)c * ksub == dop;
+}
+
 }  // namespace
 
 // Shared memory a launch needs, in bytes (the wrapper checks it against the
@@ -254,14 +242,43 @@ extern "C" int graph_beam_q_launch(const float* q_op, const float* q_bias,
                                    int c, int dop, int ksub, int w, int ef,
                                    int mode, void* stream) {
   if (nq == 0) return 0;
-  if (c < 1 || w < 1 || w > kMaxW || ef < 1 || ef > kMaxEf) return -1;
+  if (!mode_ok(mode, c, dop, ksub) || w < 1 || w > kMaxW || ef < 1 ||
+      ef > kMaxEf)
+    return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == 0) {
-    if (dop != c) return -1;
+  if (mode == 0)
     return launch<false>(q_op, q_bias, codes, node_bias, nbr, bv, bi, out_v,
                          out_i, nq, n, c, dop, 0, w, ef, s);
-  }
-  if (mode != 1 || ksub < 1 || (long long)c * ksub != dop) return -1;
   return launch<true>(q_op, q_bias, codes, node_bias, nbr, bv, bi, out_v,
                       out_i, nq, n, c, dop, ksub, w, ef, s);
+}
+
+// Shared memory of a traversal launch, in bytes; smem_words: words of the
+// visited set kept in shared memory (0 when it is a global matrix).
+extern "C" long long graph_traverse_q_smem(int dop, int w0, int m, int ef,
+                                           int smem_words) {
+  return (long long)traverse_smem(dop, w0, m, ef, smem_words);
+}
+
+// The quantized traversal of nq queries, one block each (mode as for the
+// hop). vis_g: null (the visited bits in shared memory) or a zeroed [nq,
+// words] matrix. alive: null or [n] uint8. Returns 0, -1 for arguments out
+// of range, or a cudaError_t.
+extern "C" int graph_traverse_q_launch(
+    const float* q_op, const float* q_bias, const unsigned char* codes,
+    const float* node_bias, const int* nbrs0, const int* upper,
+    const unsigned char* alive, int nq, int n, int c, int dop, int ksub,
+    int mode, int w0, int m, int levels, int entry, int ef, unsigned* vis_g,
+    float* out_v, int* out_i, long long* evals, int* hops, void* stream) {
+  if (nq == 0) return 0;
+  if (!mode_ok(mode, c, dop, ksub)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == 0) {
+    const CodeRows<false> pay{q_op, q_bias, codes, node_bias, dop, c, 0};
+    return traverse_launch(pay, nbrs0, upper, alive, nq, n, w0, m, levels,
+                           entry, ef, vis_g, out_v, out_i, evals, hops, s);
+  }
+  const CodeRows<true> pay{q_op, q_bias, codes, node_bias, dop, c, ksub};
+  return traverse_launch(pay, nbrs0, upper, alive, nq, n, w0, m, levels,
+                         entry, ef, vis_g, out_v, out_i, evals, hops, s);
 }

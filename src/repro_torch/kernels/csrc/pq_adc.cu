@@ -15,40 +15,64 @@
 // 71), which builds the LUT once per query block in VMEM, gathers it by a
 // one-hot [bn, m*ksub] matmul on the MXU (a TPU has no fast gather) and
 // carries l2_topk's k sweeps of max/argmax/mask across a sequential grid.
-// On the card:
+// On the card the LUT lives in shared memory and a lookup is an indexed
+// read, so the scan is bound by the rate of those reads, and the design is
+// about feeding them:
 //   pass 0: one block per query writes its LUT (m*ksub floats, 8 KB at
-//           PQ8x8) to a scratch buffer;
-//   pass 1: block (query tile of BQ, code chunk) holds the tile's LUTs in
-//           shared memory and looks entries up by plain indexed reads. It
-//           stages each tile of BN code rows in shared memory; thread t of
-//           1024 scores row t % BN against queries t / BN, t / BN + 1024 /
-//           BN, ... (a PQ8 row's codes held in registers) and keeps, per
-//           query, l2_topk's threshold-filtered candidate buffer with a
-//           bitonic flush. The LUTs and buffers take 64-200 KB, so one block
-//           fills an SM: 1024 threads give it 32 warps to hide the
-//           shared-memory latency. Each (query, chunk) writes its k best.
-//   pass 2: one block per query merges the chunk lists with the same
-//           buffered selection (skipped when there is a single chunk).
-// Empty slots are (-inf, INT_MAX): they lose to every real row, even one
-// that scores -inf, and never reach the output since k <= N.
+//           PQ8x8) into its query tile's interleaved LUT [m][ksub][BQ];
+//   scan:   a persistent block an SM (the grid is as many blocks as the SMs
+//           hold, 512 threads each) walks (query tile of BQ = 16, chunk of
+//           rows) items; the wrapper sizes the chunks so that the items
+//           fill whole waves. A block holds its tile's LUTs (128 KB at
+//           PQ8x8) in shared memory and streams the chunk's codes through a
+//           double-buffered cp.async ring of T-row tiles (T = 2048: 16 KB at
+//           m = 8), the next tile in flight while the block scores this
+//           one. Lanes run across queries: a lane scores four of the
+//           tile's queries on one row with one 16-byte read of the
+//           interleaved LUT a subspace, four lanes a row, a warp eight rows
+//           at once. Each 8-lane phase of such a read fetches two rows'
+//           64-byte runs (at most 2-way bank conflicts, 1.5 on average,
+//           where a warp on one query's LUT met about 3.5), and one read,
+//           one byte extract and one address serve four lookups. A thread
+//           scores 64 (row, query) pairs of a tile between two barriers.
+//   select: l2_topk's (topk_select.cuh). Each (query, item) keeps a
+//           threshold and a survivor list in device memory with room for a
+//           tile: a score that beats the threshold is appended (one shared
+//           atomic a survivor); a list past its cut point after a tile, or
+//           past k at the item's end, is cut to k by the radix select of
+//           one warp, the block's 16 warps cutting its 16 lists at once,
+//           and the threshold rises to its k-th pair. Pilot passes over
+//           every 256th and 16th row (when those samples hold k rows) seed
+//           the thresholds of the next pass with their k-th pair: a lower
+//           bound of the k-th best (the k-th best of a subset), so the
+//           scan stays exact and about 16k pairs a query survive, not the
+//           first tiles' worth. Rows arrive in id order within a list
+//           only per tile, which the radix select does not need.
+//   merge:  topk_select.cuh's pass selects k from each query's item lists
+//           and sorts them.
+// The last tile of a chunk and the last query tile are ragged: rows past
+// the chunk and queries past Q are skipped. Empty lists start at the pair
+// (-inf, INT_MAX), which every real row beats, even one scoring -inf.
 // Bound: at the main path's shapes (Q = 256, N = 1M, m = 8) the scan reads
-// 8 MB of codes and does Q*N*m adds; the operations bound it. The adds are
-// LUT lookups in shared memory, random by construction, so bank conflicts
-// and the selection set the pace, not the adds.
-#include <cuda_runtime.h>
-#include <math_constants.h>
+// 8 MB of codes and does Q*N*m = 2.05 G lookup-adds: the operations bound
+// it (0.031 ms at one float32 add a lookup). Its real ceiling is the
+// shared-memory read rate, 32 lookups a clock on each SM: 2.05 G / (32 *
+// 132 SMs * 1.755 GHz) = 0.276 ms, 0.41 ms at 1.5 wavefronts a warp read.
+#include "topk_select.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;      // the LUT and merge passes
-constexpr int kScanThreads = 1024; // the scan: 32 warps, as 1 block fills an SM
-constexpr int kMaxBQ = 8;
+constexpr int kThreads = 256;      // the LUT pass
+constexpr int kScanThreads = 512;  // the scan: 16 warps
+constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kEmptyId = 0x7fffffff;
-constexpr int kMaxLevels = 20;  // log2 of the widest tree + 1
-constexpr int kMaxCap = 4096;   // candidate buffer: k + BN pairs, pow2
+constexpr int kMaxLevels = 20;     // log2 of the widest tree + 1
+constexpr int kMaxK = kSortCap - 64;
+constexpr int kMinCut = 128;       // a list is cut at 2k + 32, at least this
 
-__device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
+// Floats of one query tile's interleaved LUT, padded to 16 bytes.
+__host__ __device__ __forceinline__ int lut_floats(int bq, int m, int ksub) {
+  return (bq * m * ksub + 3) / 4 * 4;
 }
 
 // Balanced pairwise tree of a[i] * b[i] over i < n, zero-padded to a power
@@ -67,313 +91,448 @@ __device__ float tree_dot(const float* a, const float* b, int n) {
   return part[31 - __clz(p)];
 }
 
-// The distance of a PQ8 code row held in registers (byte mm of the pair
-// is subspace mm): the pairwise tree over its 8 looked-up entries.
-__device__ __forceinline__ float tree_lut8(const float* lut, uint2 c,
-                                           int ksub) {
-  const float a0 = lut[c.x & 0xff], a1 = lut[ksub + ((c.x >> 8) & 0xff)];
-  const float a2 = lut[2 * ksub + ((c.x >> 16) & 0xff)];
-  const float a3 = lut[3 * ksub + (c.x >> 24)];
-  const float a4 = lut[4 * ksub + (c.y & 0xff)];
-  const float a5 = lut[5 * ksub + ((c.y >> 8) & 0xff)];
-  const float a6 = lut[6 * ksub + ((c.y >> 16) & 0xff)];
-  const float a7 = lut[7 * ksub + (c.y >> 24)];
-  return __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3)),
-                   __fadd_rn(__fadd_rn(a4, a5), __fadd_rn(a6, a7)));
+// A lane's V queries' values (V = 4: one 16-byte shared-memory read of
+// the interleaved LUT serves four queries; V = 1: one query), added
+// elementwise with __fadd_rn.
+template <int V>
+struct Vec;
+
+template <>
+struct Vec<4> {
+  float4 v;
+  __device__ __forceinline__ static Vec load(const float* p) {
+    return {*reinterpret_cast<const float4*>(p)};
+  }
+  __device__ __forceinline__ static Vec zero() {
+    return {make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
+  }
+  __device__ __forceinline__ Vec operator+(const Vec& b) const {
+    return {make_float4(__fadd_rn(v.x, b.v.x), __fadd_rn(v.y, b.v.y),
+                        __fadd_rn(v.z, b.v.z), __fadd_rn(v.w, b.v.w))};
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+};
+
+template <>
+struct Vec<1> {
+  float v;
+  __device__ __forceinline__ static Vec load(const float* p) { return {*p}; }
+  __device__ __forceinline__ static Vec zero() { return {0.0f}; }
+  __device__ __forceinline__ Vec operator+(const Vec& b) const {
+    return {__fadd_rn(v, b.v)};
+  }
+  __device__ __forceinline__ float operator[](int) const { return v; }
+};
+
+// The distances of a PQ8 code row held in registers (byte mm of the pair is
+// subspace mm) to this lane's V queries, read from the interleaved LUT at
+// lq: each the pairwise tree over its 8 looked-up entries.
+template <int kBQ, int V>
+__device__ __forceinline__ Vec<V> tree_lut8(const float* lq, uint2 c,
+                                            int ksub) {
+  using W = Vec<V>;
+  const W a0 = W::load(lq + (c.x & 0xff) * kBQ);
+  const W a1 = W::load(lq + (ksub + ((c.x >> 8) & 0xff)) * kBQ);
+  const W a2 = W::load(lq + (2 * ksub + ((c.x >> 16) & 0xff)) * kBQ);
+  const W a3 = W::load(lq + (3 * ksub + (c.x >> 24)) * kBQ);
+  const W a4 = W::load(lq + (4 * ksub + (c.y & 0xff)) * kBQ);
+  const W a5 = W::load(lq + (5 * ksub + ((c.y >> 8) & 0xff)) * kBQ);
+  const W a6 = W::load(lq + (6 * ksub + ((c.y >> 16) & 0xff)) * kBQ);
+  const W a7 = W::load(lq + (7 * ksub + (c.y >> 24)) * kBQ);
+  return ((a0 + a1) + (a2 + a3)) + ((a4 + a5) + (a6 + a7));
 }
 
-// The distance of one code row: pairwise tree over the m looked-up entries.
-__device__ __forceinline__ float tree_lut(const float* lut,
-                                          const unsigned char* c, int m,
-                                          int ksub) {
+// The distances of one code row of any width m: the pairwise tree over its
+// m looked-up entries.
+template <int kBQ, int V>
+__device__ __forceinline__ Vec<V> tree_lut(const float* lq,
+                                           const unsigned char* c, int m,
+                                           int ksub) {
   int p = 1;
   while (p < m) p <<= 1;
-  float part[kMaxLevels];
+  Vec<V> part[kMaxLevels];
   for (int t = 0; t < p; ++t) {
-    float v = t < m ? lut[t * ksub + c[t]] : 0.0f;
+    Vec<V> v = t < m ? Vec<V>::load(lq + (t * ksub + c[t]) * kBQ)
+                     : Vec<V>::zero();
     int level = 0;
-    for (int s = t; s & 1; s >>= 1) v = __fadd_rn(part[level++], v);
+    for (int s = t; s & 1; s >>= 1) v = part[level++] + v;
     part[level] = v;
   }
   return part[31 - __clz(p)];
 }
 
-// Pass 0: block r writes lut[r, mm * ksub + j] for every (mm, j).
+// Pass 0: block r (of q_tiles * bq) writes query r's LUT into its tile's
+// interleaved LUT, lut[(r / bq) * lut_floats + e * bq + r % bq] for e = mm
+// * ksub + j; a query past nq writes zeros.
 __global__ void __launch_bounds__(kThreads)
 pq_lut_kernel(const float* __restrict__ q, const float* __restrict__ cb,
-              int m, int ksub, int dsub, float* __restrict__ lut) {
+              int nq, int m, int ksub, int dsub, int bq,
+              float* __restrict__ lut) {
   const int r = blockIdx.x;
   const int width = m * ksub;
   const float* qrow = q + (size_t)r * m * dsub;
+  float* out = lut + (size_t)(r / bq) * lut_floats(bq, m, ksub) + r % bq;
   for (int e = threadIdx.x; e < width; e += kThreads) {
-    const int mm = e / ksub;
-    const float* qs = qrow + (size_t)mm * dsub;
-    const float* c = cb + (size_t)e * dsub;
-    const float qq = tree_dot(qs, qs, dsub);
-    const float qc = tree_dot(qs, c, dsub);
-    const float cc = tree_dot(c, c, dsub);
-    lut[(size_t)r * width + e] =
-        __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, qc)), cc);
-  }
-}
-
-// Sort each of the nq buffers of cap pairs (best first), cut it to k pairs
-// and set its threshold to the k-th pair. Every buffer holds >= k pairs.
-__device__ void flush_all(float* bv, int* bi, int* cnt, float* tv, int* ti,
-                          int nq, int cap, int k) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int p = tid; p < nq * cap; p += nt) {
-    if (p % cap >= cnt[p / cap]) {
-      bv[p] = -CUDART_INF_F;
-      bi[p] = kEmptyId;
+    float v = 0.0f;
+    if (r < nq) {
+      const int mm = e / ksub;
+      const float* qs = qrow + (size_t)mm * dsub;
+      const float* c = cb + (size_t)e * dsub;
+      const float qq = tree_dot(qs, qs, dsub);
+      const float qc = tree_dot(qs, c, dsub);
+      const float cc = tree_dot(c, c, dsub);
+      v = __fadd_rn(__fsub_rn(qq, __fmul_rn(2.0f, qc)), cc);
     }
+    out[(size_t)e * bq] = v;
   }
-  __syncthreads();
-  const int half = cap / 2;
-  for (int size = 2; size <= cap; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < nq * half; t += nt) {
-        const int base = (t / half) * cap;
-        const int u = t % half;
-        const int i = 2 * u - (u & (stride - 1));
-        const int j = i + stride;
-        const bool best_first = (i & size) == 0;
-        const float vi = bv[base + i], vj = bv[base + j];
-        const int ii = bi[base + i], ij = bi[base + j];
-        const bool swap = best_first ? better(vj, ij, vi, ii)
-                                     : better(vi, ii, vj, ij);
-        if (swap) {
-          bv[base + i] = vj; bv[base + j] = vi;
-          bi[base + i] = ij; bi[base + j] = ii;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int q = tid; q < nq; q += nt) {
-    cnt[q] = k;
-    tv[q] = bv[q * cap + k - 1];
-    ti[q] = bi[q * cap + k - 1];
-  }
-  __syncthreads();
 }
 
-// Every buffer starts with k empty pairs and its threshold at one.
-__device__ void init_buffers(float* bv, int* bi, int* cnt, float* tv, int* ti,
-                             int nq, int cap, int k) {
-  for (int p = threadIdx.x; p < nq * cap; p += blockDim.x) {
-    bv[p] = -CUDART_INF_F;
-    bi[p] = kEmptyId;
-  }
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-    cnt[q] = k;
-    tv[q] = -CUDART_INF_F;
-    ti[q] = kEmptyId;
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-// Pass 1. Block (blockIdx.x, blockIdx.y) = (query tile of bq, code chunk of
-// `chunk` rows). Dynamic shared memory: the tile's LUTs [bq][m*ksub], the
-// candidate buffers [bq][cap] (values, then ids), the code tile [bn][m].
-// Writes k pairs per (query, chunk) at out[q * out_stride + chunk * k].
-__global__ void __launch_bounds__(kScanThreads)
-pq_scan_kernel(const float* __restrict__ lut, const unsigned char* __restrict__
-               codes, int nq_total, int n_rows, int m, int ksub, int k,
-               int bq, int bn, int cap, int chunk, long long out_stride,
-               float* __restrict__ out_v, int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int width = m * ksub;
-  float* luts = reinterpret_cast<float*>(smem);
-  float* bv = luts + (size_t)bq * width;
-  int* bi = reinterpret_cast<int*>(bv + (size_t)bq * cap);
-  unsigned char* cs = reinterpret_cast<unsigned char*>(bi + (size_t)bq * cap);
-  __shared__ int cnt[kMaxBQ];
-  __shared__ float tv[kMaxBQ];
-  __shared__ int ti[kMaxBQ];
-  __shared__ int need_flush;
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem,
+                                             int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
 
+// How a tile of code rows is copied into shared memory: 16-byte cp.async
+// over the contiguous span (every row, 16-byte aligned), 8 or 4 bytes a
+// cp.async per row part (a pilot's strided rows, m a multiple of 8 or 4
+// and rows so aligned), or byte loads.
+enum Copy { kSpan16 = 0, kPart8 = 1, kPart4 = 2, kBytes = 3 };
+
+// Copy scan rows [r0, r0 + rows) (code row r * step) into cs as [rows][m].
+__device__ __forceinline__ void load_tile(unsigned char* cs,
+                                          const unsigned char* codes,
+                                          long long r0, int rows, int m,
+                                          int step, int copy) {
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * bq;
-  const int groups = kScanThreads / bn;   // query groups per tile
-  const int lrow = tid % bn;
-  const int qgroup = tid / bn;
-  const long long r_begin = (long long)blockIdx.y * chunk;
-  const long long r_end = min((long long)n_rows, r_begin + chunk);
-
-  for (int p = tid; p < bq * width; p += kScanThreads) {
-    const int a = p / width;
-    luts[p] = q0 + a < nq_total ? lut[(size_t)(q0 + a) * width + p % width]
-                                : 0.0f;
-  }
-  init_buffers(bv, bi, cnt, tv, ti, bq, cap, k);
-  if (tid == 0) need_flush = 0;
-  __syncthreads();
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += bn) {
-    const int rows = (int)min((long long)bn, r_end - r0);
+  if (copy == kSpan16) {
+    const long long bytes = (long long)rows * m;
     const unsigned char* src = codes + r0 * m;
-    for (int p = tid; p < rows * m; p += kScanThreads) cs[p] = src[p];
-    __syncthreads();
-    if (lrow < rows) {
-      const int row = (int)(r0 + lrow);
-      const unsigned char* c = cs + lrow * m;
-      // PQ8: the row's codes once into registers (the tile is 8-aligned)
-      const uint2 c8 = m == 8 ? *reinterpret_cast<const uint2*>(c)
-                              : make_uint2(0, 0);
-      for (int a = qgroup; a < bq && q0 + a < nq_total; a += groups) {
-        const float* la = luts + (size_t)a * width;
-        const float s = -(m == 8 ? tree_lut8(la, c8, ksub)
-                                 : tree_lut(la, c, m, ksub));
-        if (better(s, row, tv[a], ti[a])) {
-          const int pos = atomicAdd(&cnt[a], 1);
-          bv[a * cap + pos] = s;
-          bi[a * cap + pos] = row;
+    for (int p = tid; 16ll * p < bytes; p += kScanThreads) {
+      const long long left = bytes - 16ll * p;
+      cp_async16_n(cs + 16 * p, src + 16ll * p, left < 16 ? (int)left : 16);
+    }
+  } else if (copy == kBytes) {
+    for (int p = tid; p < rows * m; p += kScanThreads) {
+      const int row = p / m;
+      cs[p] = codes[(r0 + row) * step * m + (p - row * m)];
+    }
+  } else {
+    const int unit = copy == kPart8 ? 8 : 4;
+    const int parts = m / unit;
+    for (int p = tid; p < rows * parts; p += kScanThreads) {
+      const int row = p / parts, part = p - row * parts;
+      const unsigned char* src = codes + (r0 + row) * step * m + part * unit;
+      if (copy == kPart8) cp_async8(cs + (size_t)p * 8, src);
+      else cp_async4(cs + (size_t)p * 4, src, true);
+    }
+  }
+}
+
+// The scan. Block b walks items b, b + gridDim.x, ...; item = chunk *
+// q_tiles + query tile. Dynamic shared memory: the tile's LUTs
+// [m][ksub][kBQ], two code tiles [tile][m] (16-byte aligned), and a radix
+// histogram (256 ints) for each warp. The lists live at list_v/list_i +
+// (blockIdx.x * kBQ + ql) * cap, list ql cut by warp ql % 16; a list holds
+// at most cut + tile pairs (cut = the cut point, checked after every
+// tile), so cap = cut + tile. An item's lists, cut to at most k pairs, go
+// to part + ((chunk * q_tiles + qt) * kBQ + ql) * k with their counts.
+// init_v/init_i (or null): a pilot's [nq, k] answer, whose k-th pair seeds
+// each list's threshold.
+template <int kBQ, bool kM8>
+__global__ void __launch_bounds__(kScanThreads, 1)
+pq_scan_kernel(const float* __restrict__ lut,
+               const unsigned char* __restrict__ codes, int nq, int n_scan,
+               int row_step, int m, int ksub, int k, int tile, int cap,
+               int cut, int chunk, int q_tiles, int items, int copy,
+               const float* __restrict__ init_v,
+               const int* __restrict__ init_i, float* __restrict__ list_v,
+               int* __restrict__ list_i, float* __restrict__ part_v,
+               int* __restrict__ part_i, int* __restrict__ counts) {
+  constexpr int kV = kBQ >= 4 ? 4 : 1;          // queries a lane
+  constexpr int kL = kBQ / kV;                   // lanes a row
+  constexpr int kRows = 32 / kL;                 // rows a warp step scores
+  constexpr int kU = kV == 4 ? 2 : 4;            // row steps in flight
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lut_n = lut_floats(kBQ, m, ksub);
+  float* luts = reinterpret_cast<float*>(smem);
+  const int tile_bytes = (tile * m + 15) / 16 * 16;
+  unsigned char* ring = smem + (size_t)lut_n * 4;
+  int* hist = reinterpret_cast<int*>(ring + 2 * (size_t)tile_bytes) +
+              (threadIdx.x >> 5) * 256;
+  __shared__ float thr_v[kBQ];
+  __shared__ int thr_i[kBQ];
+  __shared__ int cnt[kBQ];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q_lane = (lane % kL) * kV, slot = lane / kL;
+  const float* lq = luts + q_lane;
+  const int steps = tile / (kScanWarps * kRows);
+  auto lv_of = [&](int ql) {
+    return list_v + ((long long)blockIdx.x * kBQ + ql) * cap;
+  };
+  auto li_of = [&](int ql) {
+    return list_i + ((long long)blockIdx.x * kBQ + ql) * cap;
+  };
+
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int qt = item % q_tiles;
+    const long long c = item / q_tiles;
+    const int q0 = qt * kBQ;
+    const long long r_begin = c * chunk;
+    const long long r_end = min((long long)n_scan, r_begin + chunk);
+    const int tiles = (int)((r_end - r_begin + tile - 1) / tile);
+    __syncthreads();   // the last item is done with the LUTs and the lists
+    {
+      const float4* src =
+          reinterpret_cast<const float4*>(lut + (size_t)qt * lut_n);
+      float4* dst = reinterpret_cast<float4*>(luts);
+      for (int p = tid; p < lut_n / 4; p += kScanThreads) dst[p] = src[p];
+    }
+    if (tid < kBQ) {
+      const bool seeded = init_v != nullptr && q0 + tid < nq;
+      const long long s = (long long)(q0 + tid) * k + k - 1;
+      thr_v[tid] = seeded ? init_v[s] : -CUDART_INF_F;
+      thr_i[tid] = seeded ? init_i[s] + 1 : kEmptyId;
+      cnt[tid] = 0;
+    }
+    load_tile(ring, codes, r_begin, (int)min((long long)tile, r_end - r_begin),
+              m, row_step, copy);
+    cp_async_commit();
+
+    for (int t = 0; t < tiles; ++t) {
+      const long long r0 = r_begin + (long long)t * tile;
+      const int rows = (int)min((long long)tile, r_end - r0);
+      cp_async_wait<0>();
+      __syncthreads();   // tile t has landed; tile t - 1 is scored
+      if (t + 1 < tiles)
+        load_tile(ring + ((t + 1) & 1) * (size_t)tile_bytes, codes,
+                  r0 + tile, (int)min((long long)tile, r_end - r0 - tile), m,
+                  row_step, copy);
+      cp_async_commit();
+      for (int ql = warp; ql < kBQ; ql += kScanWarps) {   // past cut: cut
+        const int n_in = cnt[ql];
+        if (n_in <= cut) continue;
+        const uint64_t kth = warp_select(lv_of(ql), li_of(ql), n_in, k, hist);
+        if (lane == 0) {
+          key_pair(kth, &thr_v[ql], &thr_i[ql]);
+          cnt[ql] = k;
+        }
+      }
+      __syncthreads();   // the cuts are done: appends may go
+      float t_v[kV];
+      int t_i[kV];
+      bool live[kV];
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        t_v[v] = thr_v[q_lane + v];
+        t_i[v] = thr_i[q_lane + v];
+        live[v] = q0 + q_lane + v < nq;
+      }
+      const int row0 = (int)r0;
+      const unsigned char* cs = ring + (t & 1) * (size_t)tile_bytes;
+      for (int s0 = 0; s0 < steps; s0 += kU) {
+        Vec<kV> dist[kU];
+        int lr[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          lr[u] = ((s0 + u) * kScanWarps + warp) * kRows + slot;
+          if (s0 + u >= steps || lr[u] >= rows) lr[u] = -1;
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (lr[u] < 0) continue;
+          if (kM8)
+            dist[u] = tree_lut8<kBQ, kV>(
+                lq, *reinterpret_cast<const uint2*>(cs + lr[u] * 8), ksub);
+          else
+            dist[u] = tree_lut<kBQ, kV>(lq, cs + lr[u] * m, m, ksub);
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          if (lr[u] < 0) continue;
+          const int id = (row0 + lr[u]) * row_step;
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const float sc = -dist[u][v];
+            if (live[v] && better(sc, id, t_v[v], t_i[v])) {
+              const int ql = q_lane + v;
+              const int pos = atomicAdd(&cnt[ql], 1);
+              lv_of(ql)[pos] = sc;
+              li_of(ql)[pos] = id;
+            }
+          }
         }
       }
     }
+    cp_async_wait<0>();
     __syncthreads();
-    // a buffer that could not take a whole next tile is flushed (all are)
-    if (tid < bq && cnt[tid] + bn > cap) need_flush = 1;
-    __syncthreads();
-    if (need_flush) {
-      flush_all(bv, bi, cnt, tv, ti, bq, cap, k);
-      if (tid == 0) need_flush = 0;
-      __syncthreads();
-    }
-  }
-
-  flush_all(bv, bi, cnt, tv, ti, bq, cap, k);
-  for (int p = tid; p < bq * k; p += kScanThreads) {
-    const int a = p / k, s = p % k;
-    if (q0 + a >= nq_total) continue;
-    const long long o = (long long)(q0 + a) * out_stride +
-                        (long long)blockIdx.y * k + s;
-    out_v[o] = bv[a * cap + s];
-    out_i[o] = bi[a * cap + s];
-  }
-}
-
-// Pass 2: block q merges its len = chunks * k candidate pairs into k.
-__global__ void __launch_bounds__(kThreads)
-pq_merge_kernel(const float* __restrict__ in_v, const int* __restrict__ in_i,
-                long long len, int k, int cap, float* __restrict__ out_v,
-                int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* bv = reinterpret_cast<float*>(smem);
-  int* bi = reinterpret_cast<int*>(bv + cap);
-  __shared__ int cnt[1];
-  __shared__ float tv[1];
-  __shared__ int ti[1];
-  const long long qb = (long long)blockIdx.x;
-  const float* iv = in_v + qb * len;
-  const int* ii = in_i + qb * len;
-
-  init_buffers(bv, bi, cnt, tv, ti, 1, cap, k);
-  for (long long j0 = 0; j0 < len; j0 += kThreads) {
-    const long long j = j0 + threadIdx.x;
-    const float t_v = tv[0];
-    const int t_i = ti[0];
-    if (j < len) {
-      const float v = iv[j];
-      const int id = ii[j];
-      if (better(v, id, t_v, t_i)) {
-        const int pos = atomicAdd(&cnt[0], 1);
-        bv[pos] = v;
-        bi[pos] = id;
+    // the item's end: each list cut to k, written out with its count
+    for (int ql = warp; ql < kBQ; ql += kScanWarps) {
+      if (cnt[ql] > k) warp_select(lv_of(ql), li_of(ql), cnt[ql], k, hist);
+      __syncwarp();
+      const int n_in = min(cnt[ql], k);
+      const long long base = (c * q_tiles + qt) * kBQ + ql;
+      const float* lv = lv_of(ql);
+      const int* li = li_of(ql);
+      for (int p = lane; p < n_in; p += 32) {
+        part_v[base * k + p] = lv[p];
+        part_i[base * k + p] = li[p];
       }
+      if (lane == 0) counts[base] = n_in;
     }
-    __syncthreads();
-    const bool full = cnt[0] + kThreads > cap;
-    __syncthreads();  // every thread has read cnt before it can change
-    if (full) flush_all(bv, bi, cnt, tv, ti, 1, cap, k);
-  }
-  flush_all(bv, bi, cnt, tv, ti, 1, cap, k);
-  for (int s = threadIdx.x; s < k; s += kThreads) {
-    out_v[qb * k + s] = bv[s];
-    out_i[qb * k + s] = bi[s];
   }
 }
 
-int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
+size_t scan_smem(int bq, int tile, int m, int ksub) {
+  const size_t tile_bytes = ((size_t)tile * m + 15) / 16 * 16;
+  return 4 * (size_t)lut_floats(bq, m, ksub) + 2 * tile_bytes +
+         sizeof(int) * 256 * kScanWarps;
 }
 
-size_t scan_smem(int bq, int bn, int cap, int m, int ksub) {
-  const size_t codes = ((size_t)bn * m + 15) / 16 * 16;
-  return (size_t)bq * ((size_t)m * ksub * 4 + (size_t)cap * 8) + codes;
+template <int kBQ, bool kM8>
+int blocks_per_sm(size_t smem) {
+  int blocks = 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      pq_scan_kernel<kBQ, kM8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  const cudaError_t o = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pq_scan_kernel<kBQ, kM8>, kScanThreads, smem);
+  return o == cudaSuccess ? blocks : -(int)o;
+}
+
+template <int kBQ, bool kM8>
+int launch_scan(int grid, size_t smem, const float* lut,
+                const unsigned char* codes, int nq, int n_scan, int row_step,
+                int m, int ksub, int k, int tile, int cap, int cut,
+                int chunk, int q_tiles, int items, int copy,
+                const float* init_v, const int* init_i, float* list_v,
+                int* list_i, float* part_v, int* part_i, int* counts,
+                cudaStream_t stream) {
+  auto kern = pq_scan_kernel<kBQ, kM8>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, kScanThreads, smem, stream>>>(
+      lut, codes, nq, n_scan, row_step, m, ksub, k, tile, cap, cut, chunk,
+      q_tiles, items, copy, init_v, init_i, list_v, list_i, part_v, part_i,
+      counts);
+  return (int)cudaGetLastError();
+}
+
+template <int kBQ>
+int launch_scan_m(bool m8, int grid, size_t smem, const float* lut,
+                  const unsigned char* codes, int nq, int n_scan,
+                  int row_step, int m, int ksub, int k, int tile, int cap,
+                  int cut, int chunk, int q_tiles, int items, int copy,
+                  const float* init_v, const int* init_i, float* list_v,
+                  int* list_i, float* part_v, int* part_i, int* counts,
+                  cudaStream_t stream) {
+  return m8 ? launch_scan<kBQ, true>(grid, smem, lut, codes, nq, n_scan,
+                                     row_step, m, ksub, k, tile, cap, cut,
+                                     chunk, q_tiles, items, copy, init_v,
+                                     init_i, list_v, list_i, part_v, part_i,
+                                     counts, stream)
+            : launch_scan<kBQ, false>(grid, smem, lut, codes, nq, n_scan,
+                                      row_step, m, ksub, k, tile, cap, cut,
+                                      chunk, q_tiles, items, copy, init_v,
+                                      init_i, list_v, list_i, part_v, part_i,
+                                      counts, stream);
+}
+
+int list_cut(int k) {
+  const int c = (2 * k + 32 + 31) / 32 * 32;
+  return c > kMinCut ? c : kMinCut;
 }
 
 }  // namespace
 
-extern "C" int pq_adc_max_k() { return kMaxCap - 64; }
+extern "C" int pq_adc_max_k() { return kMaxK; }
 
-// Tile geometry: the code tile bn (256 rows, or 64 when k is too large for
-// a 256-row tile), the candidate buffer cap = next_pow2(k + bn), and the
-// widest query tile bq in {8, 4, 2, 1} whose shared memory fits smem_limit.
-// Returns 0, -1 when k is above pq_adc_max_k(), -2 when one query's LUT
-// and buffer do not fit.
-extern "C" int pq_adc_plan(int k, int m, int ksub, long long smem_limit,
-                           int* bq, int* bn, int* cap, long long* smem) {
-  if (k < 1 || k > pq_adc_max_k()) return -1;
-  *bn = k + 256 <= kMaxCap ? 256 : 64;
-  *cap = next_pow2(k + *bn);
-  for (int b = kMaxBQ; b >= 1; b >>= 1) {
-    const size_t s = scan_smem(b, *bn, *cap, m, ksub);
-    if ((long long)s <= smem_limit) {
-      *bq = b;
-      *smem = (long long)s;
-      return 0;
-    }
-  }
-  return -2;
+// Scan blocks an SM holds at a plan (bq, m == 8, smem), from the card's
+// occupancy calculator; a negative cudaError_t on failure.
+extern "C" int pq_adc_blocks_per_sm(int bq, int m, long long smem) {
+  const bool m8 = m == 8;
+  if (bq == 16) return m8 ? blocks_per_sm<16, true>(smem)
+                          : blocks_per_sm<16, false>(smem);
+  if (bq == 4) return m8 ? blocks_per_sm<4, true>(smem)
+                         : blocks_per_sm<4, false>(smem);
+  return m8 ? blocks_per_sm<1, true>(smem) : blocks_per_sm<1, false>(smem);
 }
 
-// Passes 0-2. lut holds nq * m * ksub floats of scratch; part_v/part_i hold
-// nq * chunks * k pairs of scratch when chunks > 1 (unused otherwise).
-// Returns 0, -1 for arguments out of range, or the first cudaError_t met.
-extern "C" int pq_adc_launch(const float* q, const float* cb,
-                             const unsigned char* codes, int nq, int n,
-                             int m, int ksub, int dsub, int k, int chunk,
-                             int chunks, long long smem_limit, float* lut,
-                             float* part_v, int* part_i, float* out_v,
-                             int* out_i, void* stream) {
+// Pass 0: the interleaved LUTs of nq queries into lut (ceil(nq / bq)
+// tiles of lut_floats(bq, m, ksub) floats). Returns 0 or a cudaError_t.
+extern "C" int pq_adc_lut(const float* q, const float* cb, int nq, int m,
+                          int ksub, int dsub, int bq, float* lut,
+                          void* stream) {
   if (nq == 0) return 0;
-  if (m < 1 || ksub < 1 || dsub < 1 || n < 1 || k > n || chunks < 1)
+  const int blocks = (nq + bq - 1) / bq * bq;
+  pq_lut_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      q, cb, nq, m, ksub, dsub, bq, lut);
+  return (int)cudaGetLastError();
+}
+
+// One pass: the scan over the scan rows r * row_step, r < n_scan, into
+// part/counts (chunks * q_tiles * bq lists of k slots), then the merge of
+// those lists into out [nq, k], sorted. The plan comes from the wrapper
+// (kernels/pq_adc/kernel.py: plan, plan_chunks), checked here: bq in {16,
+// 4, 1}, tile a multiple of 512, cut = max(128, 2k + 32 rounded up to 32),
+// cap = cut + tile, smem the scan's dynamic shared memory, chunk a multiple
+// of tile, chunks = ceil(n_scan / chunk), grid blocks walking the chunks *
+// q_tiles items, list_v/list_i holding grid * bq lists of cap pairs;
+// init_v/init_i (or null) the previous pass's answer. Returns 0, -1 for
+// arguments out of range, or a cudaError_t.
+extern "C" int pq_adc_pass(const float* lut, const unsigned char* codes,
+                           int nq, int n_scan, int row_step, int m, int ksub,
+                           int k, int bq, int tile, int cap, int cut,
+                           long long smem, int chunk, int chunks, int grid,
+                           const float* init_v, const int* init_i,
+                           float* list_v, int* list_i, float* part_v,
+                           int* part_i, int* counts, float* out_v,
+                           int* out_i, void* stream) {
+  if (nq == 0) return 0;
+  const int q_tiles = (nq + bq - 1) / bq;
+  const long long items = (long long)q_tiles * chunks;
+  if (k < 1 || k > kMaxK || k > n_scan || chunks < 1 ||
+      chunks > kMaxChunks || chunk % tile != 0 ||
+      (long long)(chunks - 1) * chunk >= n_scan ||
+      (long long)chunks * chunk < n_scan || cut != list_cut(k) ||
+      cap != cut + tile || grid < 1 || items >= (1ll << 31) ||
+      tile % (kScanWarps * 32) != 0 || row_step < 1 ||
+      (bq != 16 && bq != 4 && bq != 1) ||
+      (size_t)smem != scan_smem(bq, tile, m, ksub))
     return -1;
   cudaStream_t s = (cudaStream_t)stream;
-  int bq, bn, cap;
-  long long smem;
-  if (pq_adc_plan(k, m, ksub, smem_limit, &bq, &bn, &cap, &smem) != 0)
-    return -1;
-  pq_lut_kernel<<<nq, kThreads, 0, s>>>(q, cb, m, ksub, dsub, lut);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  const bool merge = chunks > 1;
-  float* pv = merge ? part_v : out_v;
-  int* pi = merge ? part_i : out_i;
-  const long long stride = (long long)chunks * k;
-  e = cudaFuncSetAttribute(pq_scan_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((nq + bq - 1) / bq, chunks);
-  pq_scan_kernel<<<grid, kScanThreads, smem, s>>>(lut, codes, nq, n, m, ksub,
-                                                  k, bq, bn, cap, chunk,
-                                                  stride, pv, pi);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !merge) return (int)e;
-
-  const int cap2 = next_pow2(k + kThreads);
-  const int smem2 = cap2 * 8;
-  e = cudaFuncSetAttribute(pq_merge_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem2);
-  if (e != cudaSuccess) return (int)e;
-  pq_merge_kernel<<<nq, kThreads, smem2, s>>>(part_v, part_i, stride, k,
-                                              cap2, out_v, out_i);
+  int copy = kBytes;
+  if (row_step == 1 && (uintptr_t)codes % 16 == 0 &&
+      ((long long)tile * m) % 16 == 0)
+    copy = kSpan16;
+  else if (m % 8 == 0 && (uintptr_t)codes % 8 == 0)
+    copy = kPart8;
+  else if (m % 4 == 0 && (uintptr_t)codes % 4 == 0)
+    copy = kPart4;
+  const bool m8 = m == 8;
+  const int g = (int)(grid < items ? grid : items);
+  int e;
+#define PQ_SCAN(B)                                                          \
+  launch_scan_m<B>(m8, g, (size_t)smem, lut, codes, nq, n_scan, row_step, \
+                   m, ksub, k, tile, cap, cut, chunk, q_tiles, (int)items, \
+                   copy, init_v, init_i, list_v, list_i, part_v, part_i,   \
+                   counts, s)
+  e = bq == 16 ? PQ_SCAN(16) : bq == 4 ? PQ_SCAN(4) : PQ_SCAN(1);
+#undef PQ_SCAN
+  if (e != 0) return e;
+  topk_merge_lists_kernel<<<nq, kMergeThreads, 0, s>>>(
+      part_v, part_i, counts, q_tiles, chunks, k, bq, out_v, out_i);
   return (int)cudaGetLastError();
 }

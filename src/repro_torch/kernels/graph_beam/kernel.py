@@ -111,6 +111,64 @@ def graph_beam_cuda(q: torch.Tensor, db: torch.Tensor, db_sq: torch.Tensor,
 graph_beam_cuda.launches = 0
 
 
+def check_graph(name: str, dev: torch.device, n: int, nbrs0: torch.Tensor,
+                upper: torch.Tensor, entry: int, ef: int,
+                alive: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The checks a traversal launch makes of its graph (shared by the
+    float32 and the quantized traversal): nbrs0 [N, W0] and upper [L, N, M]
+    int32 contiguous on ``dev``, rows of 1..MAX_W slots, 1 <= ef <= MAX_EF,
+    the entry a node. Returns ``alive`` as uint8 (or None)."""
+    tensors = [nbrs0, upper]
+    if alive is not None:
+        alive = alive.to(torch.uint8)
+        tensors.append(alive)
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
+                         f"{dev} and {[str(t.device) for t in tensors]}")
+    if nbrs0.dtype != torch.int32 or upper.dtype != torch.int32:
+        raise ValueError(f"{name} takes int32 adjacency")
+    if (nbrs0.dim() != 2 or nbrs0.shape[0] != n or upper.dim() != 3
+            or upper.shape[1:2] != (n,)
+            or (alive is not None and alive.shape != (n,))):
+        raise ValueError(f"{name} graph shapes: "
+                         f"{[tuple(t.shape) for t in tensors]} for N={n}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    w0, levels, m = nbrs0.shape[1], upper.shape[0], upper.shape[2]
+    if not (1 <= w0 <= MAX_W and m <= MAX_W and (levels == 0 or m >= 1)):
+        raise ValueError(f"graph_traverse kernel supports neighbour rows "
+                         f"of 1..{MAX_W} slots (ranked in shared memory), "
+                         f"got W0={w0}, M={m}")
+    if not 1 <= ef <= MAX_EF:
+        raise ValueError(f"graph_traverse kernel supports 1 <= ef <= "
+                         f"{MAX_EF} (the beam is kept in shared memory), "
+                         f"got ef={ef}")
+    if not 0 <= entry < n or n >= 2 ** 31:
+        raise ValueError(f"{name} out of range: N={n}, entry={entry}")
+    return alive
+
+
+def visited_bits(name: str, smem, dop: int, w0: int, m: int, ef: int,
+                 nq: int, n: int, dev: torch.device
+                 ) -> Optional[torch.Tensor]:
+    """Where a traversal keeps its visited bits: None (shared memory, up
+    to ``SMEM_VISITED_MAX_N`` nodes when they fit beside the beam) or a
+    zeroed [Q, N/32] matrix on the card. ``smem(dop, w0, m, ef, words)``
+    is the library's shared-memory count; raises when even the matrix
+    layout does not fit a block."""
+    words = -(-n // 32)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    vis = None
+    if n > SMEM_VISITED_MAX_N or smem(dop, w0, m, ef, words) > limit:
+        vis = torch.zeros((nq, words), device=dev, dtype=torch.int32)
+    need = smem(dop, w0, m, ef, 0 if vis is not None else words)
+    if need > limit:
+        raise ValueError(f"{name}: operand of {dop} floats, W0={w0}, M={m}, "
+                         f"ef={ef} need {need} bytes of shared memory, the "
+                         f"card gives a block {limit}")
+    return vis
+
+
 def graph_traverse_cuda(q: torch.Tensor, db: torch.Tensor,
                         db_sq: torch.Tensor, q_sq: torch.Tensor,
                         nbrs0: torch.Tensor, upper: torch.Tensor, entry: int,
@@ -124,54 +182,30 @@ def graph_traverse_cuda(q: torch.Tensor, db: torch.Tensor,
     device. Returns (beam_v [Q, ef] float32, beam_i [Q, ef] int32, evals
     [Q] int64, hops [Q] int32), as :func:`.ref.graph_traverse_ref`."""
     dev = q.device
-    tensors = [q, db, db_sq, q_sq, nbrs0, upper]
-    if alive is not None:
-        alive = alive.to(torch.uint8)
-        tensors.append(alive)
+    tensors = [q, db, db_sq, q_sq]
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"graph_traverse_cuda needs all tensors on one "
                          f"CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in (q, db, db_sq, q_sq)) \
-            or nbrs0.dtype != torch.int32 or upper.dtype != torch.int32:
+    if any(t.dtype != torch.float32 for t in tensors):
         raise ValueError("graph_traverse_cuda takes float32 vectors and "
                          "norms, int32 adjacency")
     nq, n = q.shape[0], db.shape[0]
     if (q.dim() != 2 or db.dim() != 2 or db.shape[1] != q.shape[1]
-            or db_sq.shape != (n,) or q_sq.shape != (nq,)
-            or nbrs0.dim() != 2 or nbrs0.shape[0] != n or upper.dim() != 3
-            or upper.shape[1:2] != (n,)
-            or (alive is not None and alive.shape != (n,))):
+            or db_sq.shape != (n,) or q_sq.shape != (nq,)):
         raise ValueError(f"graph_traverse_cuda shapes: "
                          f"{[tuple(t.shape) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("graph_traverse_cuda takes contiguous tensors")
-    d, w0, levels, m = q.shape[1], nbrs0.shape[1], upper.shape[0], \
-        upper.shape[2]
-    if not (1 <= w0 <= MAX_W and m <= MAX_W and (levels == 0 or m >= 1)):
-        raise ValueError(f"graph_traverse kernel supports neighbour rows "
-                         f"of 1..{MAX_W} slots (ranked in shared memory), "
-                         f"got W0={w0}, M={m}")
-    if not 1 <= ef <= MAX_EF:
-        raise ValueError(f"graph_traverse kernel supports 1 <= ef <= "
-                         f"{MAX_EF} (the beam is kept in shared memory), "
-                         f"got ef={ef}")
-    if d < 1 or not 0 <= entry < n or n >= 2 ** 31 or nq >= 2 ** 31:
-        raise ValueError(f"graph_traverse_cuda out of range: Q={nq}, N={n}, "
-                         f"d={d}, entry={entry}")
+    d = q.shape[1]
+    if d < 1 or nq >= 2 ** 31:
+        raise ValueError(f"graph_traverse_cuda out of range: Q={nq}, d={d}")
+    alive = check_graph("graph_traverse_cuda", dev, n, nbrs0, upper, entry,
+                        ef, alive)
     lib = _lib()
-    words = -(-n // 32)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    vis = None
-    if n > SMEM_VISITED_MAX_N or lib.graph_traverse_smem(
-            d, w0, m, ef, words) > limit:
-        vis = torch.zeros((nq, words), device=dev, dtype=torch.int32)
-    need = lib.graph_traverse_smem(d, w0, m, ef, 0 if vis is not None
-                                   else words)
-    if need > limit:
-        raise ValueError(f"graph_traverse kernel: d={d}, W0={w0}, M={m}, "
-                         f"ef={ef} need {need} bytes of shared memory, the "
-                         f"card gives a block {limit}")
+    w0, levels, m = nbrs0.shape[1], upper.shape[0], upper.shape[2]
+    vis = visited_bits("graph_traverse kernel", lib.graph_traverse_smem, d,
+                       w0, m, ef, nq, n, dev)
     vals = torch.empty((nq, ef), device=dev, dtype=torch.float32)
     ids = torch.empty((nq, ef), device=dev, dtype=torch.int32)
     evals = torch.empty(nq, device=dev, dtype=torch.int64)

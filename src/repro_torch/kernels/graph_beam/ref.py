@@ -100,17 +100,34 @@ def graph_traverse_ref(q: torch.Tensor, db: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                   torch.Tensor]:
     """One query at a time, the card's traversal kernel
-    (``csrc/graph_beam.cu`` ``graph_traverse_kernel``) in its order of
-    work: the entry seed (a 1-wide merge into an empty beam), the greedy
-    descent through ``upper`` [L, N, M] (ef=1 merges; ties keep the current
-    node), then the layer-0 beam over ``nbrs0`` [N, W0] with an expanded
-    flag a beam slot carried through each merge and one "seen" bit a node.
-    Every step scores and merges as :func:`graph_beam_ref` does. ``alive``
-    (bool [N]) tombstones nodes: seen and counted, never scored. Returns
-    (beam_v [Q, ef], beam_i [Q, ef] int32, evals [Q] int64, hops [Q]
-    int32): evals as ``search_batched`` counts them, hops the layer-0
-    steps of each row."""
-    nq, n = q.shape[0], db.shape[0]
+    (``csrc/graph_traverse.cuh`` ``graph_traverse_kernel``) over float32
+    rows, in its order of work (:func:`traverse_rows`), each step scored
+    and merged as :func:`graph_beam_ref` does."""
+    d = db.float()
+
+    def score(r, safe):
+        return candidate_scores(q[r:r + 1].float(), d, safe[None, :],
+                                db_sq.float(), q_sq[r:r + 1].float())[0]
+
+    return traverse_rows(score, q.shape[0], db.shape[0], nbrs0, upper, entry,
+                         ef, alive)
+
+
+def traverse_rows(score, nq: int, n: int, nbrs0: torch.Tensor,
+                  upper: torch.Tensor, entry: int, ef: int,
+                  alive: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The traversal kernel's order of work for each of ``nq`` queries
+    alone, with the payload's scores ``score(r, ids)`` (query r, valid ids
+    [w] long -> float32 scores [w]): the entry seed (a 1-wide merge into an
+    empty beam), the greedy descent through ``upper`` [L, N, M] (ef=1
+    merges; ties keep the current node), then the layer-0 beam over
+    ``nbrs0`` [N, W0] with an expanded flag a beam slot carried through
+    each merge and one "seen" bit a node. ``alive`` (bool [N]) tombstones
+    nodes: seen and counted, never scored. Returns (beam_v [Q, ef], beam_i
+    [Q, ef] int32, evals [Q] int64, hops [Q] int32): evals as
+    ``search_batched`` counts them, hops the layer-0 steps of each row."""
     alive = (torch.ones(n, dtype=torch.bool) if alive is None
              else alive.to(torch.bool).cpu())
     nbrs0, upper = nbrs0.cpu().long(), upper.cpu().long()
@@ -119,16 +136,13 @@ def graph_traverse_ref(q: torch.Tensor, db: torch.Tensor,
     evals = torch.zeros(nq, dtype=torch.int64)
     hops = torch.zeros(nq, dtype=torch.int32)
     for r in range(nq):
-        qr, qsq = q[r:r + 1].float(), q_sq[r:r + 1].float()
 
         def merge(cand, bv, bi, bx):
             """Score the candidate ids (-1 = none) and merge them into
             (bv, bi) [e], carrying the flags bx of the beam's entries."""
             valid = cand >= 0
-            safe = torch.where(valid, cand, 0)[None, :]
-            s = torch.where(valid, candidate_scores(
-                qr, db.float(), safe, db_sq.float(), qsq)[0],
-                torch.full(cand.shape, NEG_INF))
+            s = torch.where(valid, score(r, torch.where(valid, cand, 0)),
+                            torch.full(cand.shape, NEG_INF))
             allv = torch.cat([bv, s])
             alli = torch.cat([bi, torch.where(valid, cand, -1).int()])
             allx = torch.cat([bx, torch.zeros(cand.shape[0],

@@ -11,10 +11,12 @@ rules around the scan (the reference's ``kernels/l2_topk/ops.py``); both
 the CUDA and the plain path run them.
 
 :func:`l2_topk_select_ref` is a model of the card kernel's selection
-(``csrc/l2_topk.cu``), held against :func:`l2_topk_scan_ref` on the CPU:
-per (query, chunk of rows) a running threshold, a survivor list cut back to
-k by the kernel's radix select when it would overflow, and a second pass
-that selects k from the chunks' lists with the same select and sorts them.
+(``csrc/l2_topk.cu`` on ``csrc/topk_select.cuh``), held against
+:func:`l2_topk_scan_ref` on the CPU: per (query, chunk of rows) a running
+threshold, a survivor list cut back to k by the kernel's radix select when
+it would overflow, and a second pass that selects k from the chunks' lists
+with the same select and sorts them (:func:`select_lists_ref`, which the
+``pq_adc`` model runs too).
 """
 from __future__ import annotations
 
@@ -107,11 +109,33 @@ def l2_topk_select_ref(q: torch.Tensor, d: torch.Tensor, d_sq: torch.Tensor,
             else tile_cut < k + GROUP or cap < tile_cut + tile):
         raise ValueError(f"k={k}, cap={cap}, tile_cut={tile_cut}")
     s = (2.0 * (q @ d.T) - d_sq[None, :])[:, ::row_step]
+    nq = s.shape[0]
+    first = (torch.full((nq,), NEG_INF), torch.full((nq,), PAD_ID))
+    if seed is not None:
+        first = (seed[0][:, -1], seed[1][:, -1] + 1)
+    return select_lists_ref(s, row_step, k, chunk, cap, tile_cut, tile, first)
+
+
+def select_lists_ref(s: torch.Tensor, row_step: int, k: int, chunk: int,
+                     cap: int, tile_cut: Optional[int], tile: int,
+                     first: tuple[torch.Tensor, torch.Tensor]
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The card's survivor-list selection (``csrc/topk_select.cuh``, as
+    ``l2_topk.cu`` and ``pq_adc.cu`` run it) over the scores ``s`` [Q, n]
+    of the scan rows ``0, row_step, 2 row_step, ...``, one query at a time:
+    each chunk of ``chunk`` rows keeps a list, walked in tiles of ``tile``
+    rows and groups of ``GROUP`` rows, that appends the pairs beating its
+    threshold (at first ``first`` [Q] (values, ids): a pair must beat it).
+    A cut (:func:`radix_select`) keeps a list's k best and raises the
+    threshold to the k-th. With ``tile_cut`` None a group that would take
+    the list past ``cap`` pairs first cuts it; otherwise a list holding
+    more than ``tile_cut`` pairs after a tile is cut. At the chunk's end a
+    list of more than k pairs is cut to k. The merge pass cuts the chunks'
+    lists together to k and sorts them; fewer than k real pairs leave the
+    tail to pads ``(NEG_INF, PAD_ID)``."""
     nq, n = s.shape
     rows = torch.arange(n, dtype=torch.int32) * row_step
-    first = order_keys(torch.full((nq,), NEG_INF), torch.full((nq,), PAD_ID))
-    if seed is not None:
-        first = order_keys(seed[0][:, -1], seed[1][:, -1] + 1)
+    first = order_keys(first[0].float(), first[1])
     vals = torch.full((nq, k), NEG_INF, dtype=s.dtype)
     ids = torch.full((nq, k), PAD_ID, dtype=torch.int32)
     for qi in range(nq):

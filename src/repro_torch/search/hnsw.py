@@ -11,15 +11,16 @@ The port of the reference's ``search/hnsw.py``. Two halves:
 * **Device side.** :func:`search_batched` is the port of the reference's
   one-dispatch traversal (``_traverse_impl``): the entry seed, the greedy
   descent through the upper layers (an ef=1 beam) and the layer-0
-  best-first beam. On a CUDA float32 graph it is one launch of the
-  hand-written traversal kernel (``graph_traverse_cuda``, a block a query,
-  no host in the loop). Otherwise (on the CPU, with a quantized payload, or
-  with an explicit ``hop``) it runs as PyTorch ops, one hop a step for the
-  whole batch: ``graph_beam`` over float32 rows, or ``graph_beam_q`` over a
-  quantized payload when the graph carries a :class:`GraphCodes` codec
-  (SQ8 or PQ codes, uint8 on the device), each a hand-written CUDA kernel
-  on the card; there the loop conditions are read on the host, one sync a
-  hop.
+  best-first beam. On a CUDA device it is one launch of a hand-written
+  traversal kernel (a block a query, no host in the loop):
+  ``graph_traverse_cuda`` over float32 rows, or ``graph_traverse_q_cuda``
+  over the code payload when the graph carries a :class:`GraphCodes` codec
+  (SQ8 or PQ codes, uint8 on the device); both run the shared traversal of
+  ``kernels/csrc/graph_traverse.cuh``. On the CPU, or with an explicit
+  ``hop``, it runs as PyTorch ops, one hop a step for the whole batch:
+  ``graph_beam`` over float32 rows or ``graph_beam_q`` over the codes (on
+  the card each a hand-written CUDA kernel); there the loop conditions are
+  read on the host, one sync a hop.
 
 Not ported here: the reference's ``impl="fused"`` route of
 ``candidate_distances`` through ``l2_topk`` (one launch and one sync per
@@ -41,6 +42,7 @@ from ..kernels.graph_beam import graph_beam
 from ..kernels.graph_beam.kernel import graph_traverse_cuda
 from ..kernels.graph_beam.ref import pairwise_sum
 from ..kernels.graph_beam_q import graph_beam_q
+from ..kernels.graph_beam_q.kernel import graph_traverse_q_cuda
 from . import quantize as qz
 
 _MAX_LEVEL = 15
@@ -516,11 +518,12 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     order is consistent. Visited state is a ``[Q, N]`` uint8 stamp matrix
     (0 unseen, 1 seen, 2 expanded), zeroed for each search.
 
-    On a CUDA device, with no ``hop`` and no codec, the whole loop is one
-    launch of the traversal kernel (``graph_traverse_cuda``): each row runs
-    this loop's steps alone, with the same hop arithmetic, so its answer,
-    evals and layer-0 hops are the loop's; ``hops`` is their maximum, read
-    once at the end.
+    On a CUDA device, with no ``hop``, the whole loop is one launch of a
+    traversal kernel (``graph_traverse_cuda`` over float32 rows,
+    ``graph_traverse_q_cuda`` over the codec's codes): each row runs this
+    loop's steps alone, with the same hop arithmetic, so its answer, evals
+    and layer-0 hops are the loop's; ``hops`` is their maximum, read once
+    at the end.
 
     Rows that have converged keep looping with every slot masked, a
     bitwise no-op, so a row's answer does not depend on its batch-mates.
@@ -553,10 +556,19 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     # a fixed sum order: a query's norm is the same alone and in a batch
     q_sq = pairwise_sum(q * q)
     cdx = graph.codec
-    if dev.type == "cuda" and hop is None and cdx is None:
-        beam_v, beam_i, evals, row_hops = graph_traverse_cuda(
-            q, vecs, vecs_sq, q_sq, nbrs0, upper, graph.entry, ef,
-            alive=mask)
+    if cdx is not None:
+        codes, node_bias = cdx.device_arrays(dev)[:2]
+        q_op, q_bias = cdx.query_operands(q, q_sq)
+    if dev.type == "cuda" and hop is None:
+        if cdx is None:
+            out = graph_traverse_cuda(q, vecs, vecs_sq, q_sq, nbrs0, upper,
+                                      graph.entry, ef, alive=mask)
+        else:
+            out = graph_traverse_q_cuda(
+                q_op.contiguous(), q_bias.contiguous(), codes, node_bias,
+                nbrs0, upper, graph.entry, ef, cdx.kind, cdx.ksub,
+                alive=mask)
+        beam_v, beam_i, evals, row_hops = out
         return _finish(beam_v, beam_i, k) + (evals, int(row_hops.max()))
     if cdx is None:
         hop = graph_beam if hop is None else hop
@@ -566,8 +578,6 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
                        db_mask=mask)
     else:
         hop = graph_beam_q if hop is None else hop
-        codes, node_bias = cdx.device_arrays(dev)[:2]
-        q_op, q_bias = cdx.query_operands(q, q_sq)
 
         def step(cand, bv, bi):
             return hop(q_op, q_bias, codes, node_bias, cand, bv, bi,

@@ -48,8 +48,10 @@ from repro_torch.kernels.graph_beam.kernel import (  # noqa: E402
     graph_beam_cuda, graph_traverse_cuda)
 from repro_torch.kernels.graph_beam.ref import (  # noqa: E402
     graph_beam_ref, graph_traverse_ref, pairwise_sum)
-from repro_torch.kernels.graph_beam_q.kernel import graph_beam_q_cuda  # noqa: E402
-from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref  # noqa: E402
+from repro_torch.kernels.graph_beam_q.kernel import (  # noqa: E402
+    graph_beam_q_cuda, graph_traverse_q_cuda)
+from repro_torch.kernels.graph_beam_q.ref import (  # noqa: E402
+    graph_beam_q_ref, graph_traverse_q_ref)
 from repro_torch.kernels import l2_topk  # noqa: E402
 from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import (l2_topk_ref,  # noqa: E402
@@ -658,6 +660,51 @@ def test_pq_adc_kernel_matches_plain(q_n, n, m, ksub, dsub, k, integer):
 
 
 @needs_card
+@pytest.mark.parametrize("k", [1, 320, 2048, 4032])
+@pytest.mark.parametrize("kind", ["one_code", "ints", "float"])
+def test_pq_adc_kernel_plan_branches(kind, k):
+    """The new plan's branches at N = 70,001 (a pilot over every 16th row
+    seeds the main pass, itself seeded at k = 1 by one over every 256th,
+    unseeded at k >= 320): every row
+    one code (every score tied, lists cut again and again, the lower row
+    first), integer LUTs (dense ties), float; Q = 33 (three query tiles,
+    the last ragged)."""
+    q, cb, codes = _pq_case(k, 33, 70_001, 8, 256, 2, kind == "ints")
+    if kind == "one_code":
+        codes[:] = codes[0]
+    v, i = pq_adc_cuda(q, cb, codes, k)
+    torch.cuda.synchronize()
+    vr, ir = pq_adc_ref(q, cb, codes, k)
+    assert torch.equal(i, ir)
+    assert torch.equal(v.view(torch.int32), vr.view(torch.int32))
+
+
+@needs_card
+@pytest.mark.parametrize("q_n,n,m,ksub,dsub,k,offset", [
+    (5, 40_001, 16, 256, 2, 40, 0),     # 4-query tiles (a 16 KB LUT each)
+    (3, 6_001, 64, 256, 1, 10, 0),      # 1-query tiles, 1024-row code tiles
+    (3, 9_000, 8, 256, 2, 100, 8),      # 8-byte copies (codes off 16 B)
+    (3, 9_000, 4, 64, 2, 100, 4),       # 4-byte copies
+    (2, 5_003, 3, 16, 2, 64, 3),        # byte copies
+    (4, 2_047, 8, 256, 2, 2_047, 0),    # N < a code tile, k = N
+    (1, 1_000_003, 8, 256, 1, 2048, 0)])
+def test_pq_adc_kernel_tiles_and_copies(q_n, n, m, ksub, dsub, k, offset):
+    """Query tiles of 4 and of 1 (LUTs too wide for 16, and for 4 with
+    2048-row code tiles), code rows copied 16, 8, 4 or 1 byte at a time
+    (codes at an offset from a 16-byte boundary), a corpus shorter than one
+    code tile, and one query over 1M rows."""
+    q, cb, codes = _pq_case(n + k, q_n, n, m, ksub, dsub, False)
+    flat = torch.empty(n * m + offset, dtype=torch.uint8, device="cuda")
+    view = flat[offset:].view(n, m)
+    view.copy_(codes)
+    v, i = pq_adc_cuda(q, cb, view, k)
+    torch.cuda.synchronize()
+    vr, ir = pq_adc_ref(q, cb, codes, k)
+    assert torch.equal(i, ir)
+    assert torch.equal(v.view(torch.int32), vr.view(torch.int32))
+
+
+@needs_card
 def test_pq_adc_kernel_limits_and_launch_counter():
     q, cb, codes = _pq_case(0, 4, 5000, 8, 256, 2, False)
     with pytest.raises(ValueError, match="k <= min"):
@@ -790,8 +837,9 @@ def test_quantized_index_on_card_answers_like_the_cpu_index(spec, tmp_path):
 def test_quantized_hnsw_on_card_answers_like_the_cpu_index(quant, tmp_path):
     """A quantized graph built on the CPU, loaded on both devices: equal
     ids and bit-equal scores (the hop's sums, the LUT and the SQ8 operands
-    are elementwise trees on both devices); every step one graph_beam_q
-    launch; a lone query answers as in its batch."""
+    are elementwise trees on both devices); a search one launch of the
+    quantized traversal, no hop kernel; a lone query answers as in its
+    batch."""
     rng = np.random.default_rng(1)
     centers = rng.normal(size=(8, 32)) * 4
     corpus = (centers[rng.integers(0, 8, 3000)]
@@ -802,9 +850,11 @@ def test_quantized_hnsw_on_card_answers_like_the_cpu_index(quant, tmp_path):
     cpu = api.load_index(str(tmp_path / "g"), device="cpu")
     gpu = api.load_index(str(tmp_path / "g"))
     graph_beam_q_cuda.launches = graph_beam_cuda.launches = 0
+    graph_traverse_q_cuda.launches = graph_traverse_cuda.launches = 0
     got = gpu.search(queries, 10)
-    assert graph_beam_q_cuda.launches >= got.stats["beam_hops"] + 1
-    assert graph_beam_cuda.launches == 0
+    assert graph_traverse_q_cuda.launches == 1
+    assert (graph_beam_q_cuda.launches, graph_beam_cuda.launches,
+            graph_traverse_cuda.launches) == (0, 0, 0)
     want = cpu.search(queries, 10)
     np.testing.assert_array_equal(got.indices, want.indices)
     np.testing.assert_array_equal(got.scores, want.scores)
@@ -812,6 +862,117 @@ def test_quantized_hnsw_on_card_answers_like_the_cpu_index(quant, tmp_path):
     solo = gpu.search(queries[3:4], 10)
     np.testing.assert_array_equal(solo.indices[0], got.indices[3])
     np.testing.assert_array_equal(solo.scores[0], got.scores[3])
+
+
+def _codec_graph(card_graph, quant):
+    """The card graph with an SQ8 or PQ8x8 payload (trained on the card)
+    and its quantized traversal's operands on the card."""
+    g, q = card_graph
+    gq = hnsw.HNSWGraph(vecs=g.vecs, levels=g.levels, links0=g.links0,
+                        links=g.links, entry=g.entry, M=g.M)
+    gq.codec = hnsw.make_graph_codes(g.vecs, quant, m=8, seed=0)
+    dev = torch.device("cuda")
+    _, _, nbrs0, upper = gq.pack().device_arrays(gq.vecs, dev)
+    codes, node_bias = gq.codec.device_arrays(dev)[:2]
+    qt = torch.as_tensor(q, device="cuda")
+    q_op, q_bias = gq.codec.query_operands(qt, pairwise_sum(qt * qt))
+    return gq, q, (q_op.contiguous(), q_bias.contiguous(), codes, node_bias,
+                   nbrs0, upper)
+
+
+@needs_card
+@pytest.mark.parametrize("tomb", [False, True], ids=["all", "tombstones"])
+@pytest.mark.parametrize("ef", [1, 10, 80, 4096])
+@pytest.mark.parametrize("quant", ["sq8", "pq"])
+def test_graph_traversal_q_kernel_equals_plain_hop_loop(card_graph, quant,
+                                                        ef, tomb):
+    """A quantized search is one launch of the quantized traversal (no hop
+    kernel, no float32 kernel); ids, scores (bit-equal), evals and hops
+    equal to the batched loop of plain quantized hops, and to the
+    per-query plain model (each row's hops included)."""
+    gq, q, ops = _codec_graph(card_graph, quant)
+    alive, k = _alive(gq, tomb), min(10, ef)
+    for fn in (graph_traverse_q_cuda, graph_beam_q_cuda, graph_traverse_cuda,
+               graph_beam_cuda):
+        fn.launches = 0
+    got = hnsw.search_batched(gq, q, k, ef_search=ef, device="cuda",
+                              alive=alive)
+    assert (graph_traverse_q_cuda.launches, graph_beam_q_cuda.launches,
+            graph_traverse_cuda.launches, graph_beam_cuda.launches) == \
+        (1, 0, 0, 0)
+    want = hnsw.search_batched(gq, q, k, ef_search=ef, device="cuda",
+                               alive=alive, hop=graph_beam_q_ref)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3]
+    mask = None if alive is None else torch.as_tensor(alive, device="cuda")
+    mode, ksub = gq.codec.kind, gq.codec.ksub
+    kern = graph_traverse_q_cuda(*ops, gq.entry, max(ef, k), mode, ksub,
+                                 alive=mask)
+    plain = graph_traverse_q_ref(*(t.cpu() for t in ops), gq.entry,
+                                 max(ef, k), mode, ksub,
+                                 alive=None if mask is None else mask.cpu())
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.cpu(), b)
+    assert int(kern[3].max()) == got[3]
+
+
+@needs_card
+@pytest.mark.parametrize("quant", ["sq8", "pq"])
+def test_graph_traversal_q_visited_matrix_and_row_alone(card_graph,
+                                                        monkeypatch, quant):
+    """The visited bits in a zeroed [Q, N/32] matrix give the
+    shared-memory answer, and a query alone answers as its batch row."""
+    gq, q, _ = _codec_graph(card_graph, quant)
+    alive = _alive(gq, True)
+    want = hnsw.search_batched(gq, q, 10, ef_search=80, device="cuda",
+                               alive=alive)
+    for r in (0, 17, 63):
+        solo = hnsw.search_batched(gq, q[r:r + 1], 10, ef_search=80,
+                                   device="cuda", alive=alive)
+        for a, b in zip(solo[:3], want[:3]):
+            assert torch.equal(a[0], b[r])
+    monkeypatch.setattr(graph_beam_kernel, "SMEM_VISITED_MAX_N", 0)
+    got = hnsw.search_batched(gq, q, 10, ef_search=80, device="cuda",
+                              alive=alive)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert got[3] == want[3]
+
+
+@needs_card
+def test_graph_traversal_q_limits_and_launch_counter(card_graph):
+    gq, _, (q_op, q_bias, codes, node_bias, nbrs0, upper) = _codec_graph(
+        card_graph, "pq")
+    ksub = gq.codec.ksub
+
+    def call(*args, **kw):
+        return graph_traverse_q_cuda(*args, **{"mode": "pq", "ksub": ksub,
+                                               **kw})
+
+    with pytest.raises(ValueError, match="ef <= 4096"):
+        call(q_op, q_bias, codes, node_bias, nbrs0, upper, gq.entry, 4097)
+    wide = torch.full((gq.ntotal, 1025), -1, dtype=torch.int32,
+                      device="cuda")
+    with pytest.raises(ValueError, match="1..1024 slots"):
+        call(q_op, q_bias, codes, node_bias, wide, upper, gq.entry, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(q_op.cpu(), q_bias, codes, node_bias, nbrs0, upper, gq.entry, 8)
+    with pytest.raises(ValueError, match="uint8"):
+        call(q_op, q_bias, codes.int(), node_bias, nbrs0, upper, gq.entry, 8)
+    with pytest.raises(ValueError, match="m\\*ksub"):
+        call(q_op[:, :64].contiguous(), q_bias, codes, node_bias, nbrs0,
+             upper, gq.entry, 8)
+    with pytest.raises(ValueError, match="mode"):
+        call(q_op, q_bias, codes, node_bias, nbrs0, upper, gq.entry, 8,
+             mode="fp4")
+    with pytest.raises(ValueError, match="out of range"):
+        call(q_op, q_bias, codes, node_bias, nbrs0, upper, gq.ntotal, 8)
+    graph_traverse_q_cuda.launches = 0
+    call(q_op, q_bias, codes, node_bias, nbrs0, upper, gq.entry, 4096)
+    call(q_op[:1], q_bias[:1], codes, node_bias, nbrs0, upper[:0], gq.entry,
+         1)
+    assert graph_traverse_q_cuda.launches == 2
 
 
 # ---------------------------------------------------------------------------
