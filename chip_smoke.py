@@ -29,7 +29,8 @@ Phases:
    every k up to ``max_k()`` on ragged, unaligned, tied and integer
    inputs; the one-launch traversals, float32 and quantized, against the
    loop of plain hops; the ADC scan on tied codes and at every plan
-   branch);
+   branch; the merge on both sides of its narrow blocks' width limit, with
+   more pads than C - k and rows all pads);
 2. acceptance at the reference's bars on the 20k x 256 corpus: recall@10
    >= 0.9 for the Flat and IVF256 stacks, the Shard8 IVF256 stack within
    0.01 of its twin, ``RAE64,IVF256,PQ8x8,Rerank4`` >= 0.85 at <= 1/8 the
@@ -57,7 +58,8 @@ Phases:
    query at a time, build time by part, peak memory, two Shard8 builds with
    one fingerprint; ``Shard1/2/8,Flat`` bitwise equal to ``FlatIndex`` on a
    prime-sized integer corpus; and the merge kernel's time at the main
-   path's shape;
+   path's shape, at a lone query of it and at C = 16384, k = 2048, beside
+   its bound and the launch floor (``torch.cuda._sleep(0)``);
 6. the quantized tiers: ``RAE64,PQ8x8,Rerank4`` and
    ``RAE64,IVF256,PQ8x8,Rerank4`` on phase 5's corpus and fit (no cut),
    beside their twin ``RAE64,Flat,Rerank4``: recall@10, bytes per vector,
@@ -87,12 +89,14 @@ Phases:
    and the decode kernel's time at both cells' shapes.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
-times ``pq_adc`` (k = 320 and 2048), a phase-4-shaped graph search over
-float32 rows, an SQ8 and a PQ8x8 payload (a 256-query batch and one
-query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``, ``flash_decode``
-and the llama decode steps with the port in ``PARENT/src`` (a ``git
-archive`` of the parent commit) and with this tree's, in turns (parent,
-change, change, parent), each in a process of its own, on one card.
+times ``topk_merge`` (Q = 256 and 1 at C = 320, k = 40; Q = 256 at C =
+16384, k = 2048), ``pq_adc`` (k = 320 and 2048), a phase-4-shaped graph
+search over float32 rows, an SQ8 and a PQ8x8 payload (a 256-query batch
+and one query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``,
+``flash_decode`` and the llama decode steps with the port in
+``PARENT/src`` (a ``git archive`` of the parent commit) and with this
+tree's, in turns (parent, change, change, parent), each in a process of
+its own, on one card.
 
 Every launch counter is set to 0 just before phases 3 to 8 drive their
 paths and read just after; a kernel of the path that did not launch fails
@@ -802,20 +806,30 @@ def phase_kernels_graph_beam_q(g: torch.Generator) -> float:
     return worst
 
 
-def merge_inputs(g: torch.Generator, nq: int, c: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Gathered shard candidates: ids unique per row with about 25% pads
-    (-1), integer values (dense ties), about 20% signed zeros (-0.0 ties
-    +0.0) and about 5% live ids at NEG_INF."""
+def merge_inputs(g: torch.Generator, nq: int, c: int, pads: float = 0.25,
+                 drained: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gathered shard candidates: ids unique per row with a share of pads
+    (-1; about 25%), integer values (dense ties), about 20% signed zeros
+    (-0.0 ties +0.0) and about 5% live ids at NEG_INF; ``drained``: the
+    first row all pads."""
     from repro_torch.kernels.common import NEG_INF
 
     ids = torch.argsort(torch.rand(nq, 4 * c, device="cuda", generator=g),
                         dim=1)[:, :c].to(torch.int32)
-    ids[torch.rand(nq, c, device="cuda", generator=g) < 0.25] = -1
+    ids[torch.rand(nq, c, device="cuda", generator=g) < pads] = -1
+    if drained:
+        ids[0] = -1
     vals = torch.randint(-3, 4, (nq, c), device="cuda", generator=g).float()
     vals[torch.rand(nq, c, device="cuda", generator=g) < 0.2] = -0.0
     vals[torch.rand(nq, c, device="cuda", generator=g) < 0.05] = NEG_INF
     return vals.contiguous(), ids.contiguous()
+
+
+#: phase 1's merge cases past the parent's: C on both sides of the narrow
+#: blocks' limit (1024), k = C at it, more pads than C - k; (C, k, share
+#: of pads), each with its first row all pads
+MERGE_BOUNDARY = ((1024, 40, 0.25), (1025, 40, 0.25), (1024, 1024, 0.25),
+                  (1025, 1000, 0.6), (320, 300, 0.5))
 
 
 def phase_kernels_topk_merge(g: torch.Generator) -> float:
@@ -826,22 +840,26 @@ def phase_kernels_topk_merge(g: torch.Generator) -> float:
 
     worst, cases = 0.0, 0
     for nq in (1, 257):
-        for c, k in ((1, 3), (6, 10), (96, 16), (320, 40), (16384, 2048)):
-            vals, ids = merge_inputs(g, nq, c)
+        for c, k, pads, drained in (
+                [(c, k, 0.25, False) for c, k in ((1, 3), (6, 10), (96, 16),
+                                                  (320, 40), (16384, 2048))]
+                + [(c, k, p, True) for c, k, p in MERGE_BOUNDARY]):
+            vals, ids = merge_inputs(g, nq, c, pads, drained)
             v, i = topk_merge(vals, ids, k)
             sync()
             vr, ir = topk_merge_ref(vals, ids, k)
             err, _ = max_rel_err(v, vr)
             worst = max(worst, err)
-            what = f"topk_merge Q={nq} C={c} k={k}"
+            what = f"topk_merge Q={nq} C={c} k={k} pads={pads}"
             check(torch.equal(i, ir), f"{what}: ids differ")
             check(torch.equal(v.view(torch.int32), vr.view(torch.int32)),
                   f"{what}: values not bit-equal")
             cases += 1
     log(f"phase 1: topk_merge {cases} cases (Q in {{1, 257}}, (C, k) in "
         f"{{(1, 3), (6, 10), (96, 16), (320, 40), (16384, 2048)}}, 25% pads, "
-        f"integer values, signed zeros, live NEG_INF): ids equal and values "
-        f"bit-equal in all")
+        f"integer values, signed zeros, live NEG_INF; and (C, k, pads) in "
+        f"{MERGE_BOUNDARY} with the first row all pads): ids equal and "
+        f"values bit-equal in all")
     return worst
 
 
@@ -1766,25 +1784,113 @@ def phase_sharded(n: int, n_queries: int, batch: int, steps: int,
             "ids": gids.contiguous(), "k": k1}
 
 
+def shard_candidates(g: torch.Generator, nq: int, k1: int, shards: int = 8
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """What ``shards`` children hand the merge for ``nq`` queries: each
+    shard's k1 best as normal scores in descending order, ids unique per
+    row, no pads. [nq, k1 * shards] float32 and int32, on the card."""
+    c = k1 * shards
+    ids = torch.argsort(torch.rand(nq, 4 * c, device="cuda", generator=g),
+                        dim=1)[:, :c].to(torch.int32)
+    vals = torch.randn(nq, shards, k1, device="cuda", generator=g)
+    vals = vals.sort(dim=2, descending=True).values.reshape(nq, c)
+    return vals.contiguous(), ids.contiguous()
+
+
+#: The merge's timed shapes: the sharded search's batch (Q = 256, C = k1 x
+#: 8 = 320, k = 40), a lone query of it, and KNOB_LADDER's top rung (k1 =
+#: 2048 from 8 shards).
+MERGE_WIDE = (256, 2048)
+
+
+def merge_shapes(g: torch.Generator, main: tuple | None = None) -> dict:
+    """(vals, ids, k) at the merge's timed shapes: ``main`` (a real batch's
+    candidates, else ``shard_candidates`` at Q = 256, k1 = 40), its first
+    row alone, and ``shard_candidates`` at ``MERGE_WIDE``."""
+    vals, ids, k = main or (*shard_candidates(g, 256, 40), 40)
+    wide = shard_candidates(g, *MERGE_WIDE)
+    return {"main": (vals, ids, k),
+            "q1": (vals[:1].contiguous(), ids[:1].contiguous(), k),
+            "wide": (*wide, MERGE_WIDE[1])}
+
+
+def merge_times(shapes: dict, reps: dict | None = None) -> dict:
+    """The merge kernel at each shape by CUDA events, the card held busy
+    while the host enqueues (``device_ms``), beside the plain version's,
+    the library composite's (two stable sorts and gathers on the pinned
+    pool), the bytes bound and the launch floor (``torch.cuda._sleep(0)``,
+    a kernel that returns at once, timed the same way); the kernel is held
+    bit for bit to its plain version at each shape first."""
+    from repro_torch.kernels.topk_merge import kernel as merge_kernel
+    from repro_torch.kernels.topk_merge.ref import (lexsort_desc, pin_pads,
+                                                    topk_merge_ref)
+
+    reps = reps or {"main": 500, "q1": 500, "wide": 100}
+    fn = merge_kernel.topk_merge_cuda
+    out = {}
+    for name, (vals, ids, k) in shapes.items():
+        nq, c = vals.shape
+        v, i = fn(vals, ids, k)
+        vr, ir = topk_merge_ref(vals, ids, k)
+        check(torch.equal(i, ir) and torch.equal(v.view(torch.int32),
+                                                 vr.view(torch.int32)),
+              f"topk_merge at {name} differs from its plain version")
+        pv, ptb = pin_pads(vals, ids, k)
+        ms, held = device_ms(lambda: fn(vals, ids, k), reps=reps[name])
+        plain, held_p = device_ms(lambda: topk_merge_ref(vals, ids, k),
+                                  reps=20)
+        lib, held_l = device_ms(lambda: lexsort_desc(pv, ptb, k), reps=20)
+        out[name] = {"q": nq, "c": c, "k": k, "ms": ms, "held": held,
+                     "plain_ms": plain, "plain_held": held_p,
+                     "library_ms": lib, "library_held": held_l,
+                     "bound_ms": bound(8.0 * nq * c + 8.0 * nq * k, 0.0)[0]}
+    out["floor_ms"] = device_ms(lambda: torch.cuda._sleep(0), reps=500)[0]
+    return out
+
+
+def merge_select_stats(shapes: dict, rows: int = 32) -> dict:
+    """Cut passes and block barriers a row of the kernel's selection at
+    each shape, from its CPU model (``ref.topk_merge_select_ref`` at
+    ``kernel.plan``) on the first ``rows`` rows of the same inputs, which
+    it must merge bit for bit as the kernel does."""
+    from repro_torch.kernels.topk_merge.kernel import plan, topk_merge_cuda
+    from repro_torch.kernels.topk_merge.ref import topk_merge_select_ref
+
+    out = {}
+    for name, (vals, ids, k) in shapes.items():
+        v, i = vals[:rows], ids[:rows]
+        mv, mi, st = topk_merge_select_ref(v.cpu(), i.cpu(), k,
+                                           plan(v.shape[1], k))
+        kv, ki = topk_merge_cuda(v.contiguous(), i.contiguous(), k)
+        check(torch.equal(mi, ki.cpu()) and torch.equal(
+            mv.view(torch.int32), kv.cpu().view(torch.int32)),
+            f"topk_merge at {name}: the CPU model differs from the kernel")
+        out[name] = {"passes_mean": float(st["passes"].float().mean()),
+                     "passes_max": int(st["passes"].max()),
+                     "block_barriers_max": int(st["block_barriers"].max())}
+    return out
+
+
 def topk_merge_time(merge: dict) -> dict:
     """The merge kernel at the sharded search's shape (Q=256, C=k1*8=320,
-    k=k1=40) on a real batch's candidates: its time beside its bound, its
-    plain version's and the library composite's (two stable sorts and
-    gathers)."""
+    k=k1=40) on a real batch's candidates, a lone query of that batch, and
+    the widest row (Q=256, C=16384, k=2048, ``shard_candidates``): its time
+    beside its bound, the launch floor, its plain version's and the
+    library composite's; the cut passes and block barriers a row from the
+    kernel's CPU model. The kernels line carries the batch's numbers."""
     from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
     from repro_torch.kernels.topk_merge.ref import (lexsort_desc, pin_pads,
                                                     topk_merge_ref)
 
-    vals, ids, k = merge["vals"], merge["ids"], merge["k"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    shapes = merge_shapes(g, (merge["vals"], merge["ids"], merge["k"]))
+    vals, ids, k = shapes["main"]
     nq, c = vals.shape
     pv, ptb = pin_pads(vals, ids, k)
 
     def library():
         return lexsort_desc(pv, ptb, k)
 
-    ms, held_k = device_ms(lambda: topk_merge_cuda(vals, ids, k), reps=500)
-    plain, held_p = device_ms(lambda: topk_merge_ref(vals, ids, k), reps=50)
-    lib, held_l = device_ms(library, reps=50)
     traced = [traced_device_ms(fn, reps=20) for fn in (
         lambda: topk_merge_cuda(vals, ids, k),
         lambda: topk_merge_ref(vals, ids, k), library)]
@@ -1793,21 +1899,34 @@ def topk_merge_time(merge: dict) -> dict:
         f"{traced[0]:.4f} ms, plain {traced[1]:.4f} ms, two stable "
         f"torch.sort + gathers {traced[2]:.4f} ms")
     per_call = cuda_ms(lambda: topk_merge_cuda(vals, ids, k), reps=200)
-    b_ms, b_by = bound(8.0 * nq * c + 8.0 * nq * k, 0.0)
-    log(f"phase 5: topk_merge Q={nq} C={c} k={k} (device time, card held "
-        f"busy while enqueuing: {held_k}, {held_p}, {held_l}): kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, two stable torch.sort + "
-        f"gathers {lib:.4f} ms, bound {b_ms:.6f} ms ({b_by}); one call from "
-        f"the host, back to back, {per_call:.4f} ms")
+    times = merge_times(shapes)
+    stats = merge_select_stats(shapes)
+    for name, t in times.items():
+        if name == "floor_ms":
+            continue
+        log(f"phase 5: topk_merge {name} Q={t['q']} C={t['c']} k={t['k']} "
+            f"(device time, card held busy while enqueuing: {t['held']}, "
+            f"{t['plain_held']}, {t['library_held']}): kernel "
+            f"{t['ms']:.4f} ms, launch floor (torch.cuda._sleep(0)) "
+            f"{times['floor_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"(bytes), plain {t['plain_ms']:.4f} ms, two stable torch.sort "
+            f"+ gathers {t['library_ms']:.4f} ms; cut passes a row (CPU "
+            f"model, first 32 rows) mean {stats[name]['passes_mean']:.2f} "
+            f"max {stats[name]['passes_max']}, block barriers a row max "
+            f"{stats[name]['block_barriers_max']}")
+    log(f"phase 5: topk_merge main, one call from the host, back to back, "
+        f"{per_call:.4f} ms")
+    t = times["main"]
     # where the host leaked into an event-timed run (held False), the kernel
     # line carries the traced time, the card's own
-    plain = plain if held_p else traced[1]
-    lib = lib if held_l else traced[2]
+    plain = t["plain_ms"] if t["plain_held"] else traced[1]
+    lib = t["library_ms"] if t["library_held"] else traced[2]
     return {"name": "topk_merge", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_merge.cu",
             "replaces": "src/repro/kernels/topk_merge/kernel.py:71",
-            "launches": merge["launches"], "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "launches": merge["launches"], "ms": t["ms"], "plain_ms": plain,
+            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "library_ms": lib}
 
 
 # ---------------------------------------------------------------------------
@@ -2885,7 +3004,9 @@ def graph_times(graph_path: str, payload: str = "f32") -> dict:
 def redesign_times(src: str, graph_path: str) -> dict:
     """The redesigned kernels and the graph search, timed with the port
     whose ``src`` directory is given (put first on the path, its kernels
-    built from its own sources): ``pq_adc`` at the PQ path's shape (Q=256,
+    built from its own sources): ``topk_merge`` at its three timed shapes
+    over seeded shard candidates (``merge_shapes``, ``merge_times``);
+    ``pq_adc`` at the PQ path's shape (Q=256,
     N=1,000,003, PQ8x8, seeded codes) at k = 320 and 2048 beside the
     library composite (``pq_library``); the ``AB_GRAPH`` traversal over
     float32 rows and its SQ8 and PQ8x8 payloads (``graph_times``);
@@ -2900,7 +3021,7 @@ def redesign_times(src: str, graph_path: str) -> dict:
     from repro_torch.kernels import _build
 
     _build.build(("rae_encode", "flash_decode", "l2_topk", "graph_beam",
-                  "pq_adc", "graph_beam_q"))
+                  "pq_adc", "graph_beam_q", "topk_merge"))
     import repro_torch
     from repro_torch.configs import get_shapes
     from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
@@ -2913,6 +3034,8 @@ def redesign_times(src: str, graph_path: str) -> dict:
 
     out: dict = {"src": src}
     g = torch.Generator(device="cuda").manual_seed(0)
+    out["topk_merge"] = merge_times(merge_shapes(g))
+    free_card()
     q = torch.randn(256, 64, device="cuda", generator=g)
     cb = torch.randn(8, 256, 8, device="cuda", generator=g)
     codes = torch.randint(0, 256, (1_000_003, 8), device="cuda",
@@ -3011,6 +3134,14 @@ def ab(parent_src: str) -> int:
         res["label"] = label
         runs.append(res)
         enc, gr = res["rae_encode"], res["graph"]
+        log(f"{label} ({src}): topk_merge "
+            + "; ".join(f"{n} Q={t['q']} C={t['c']} k={t['k']} "
+                        f"{t['ms']:.4f} ms (held {t['held']}; plain "
+                        f"{t['plain_ms']:.4f}, two stable sorts + gathers "
+                        f"{t['library_ms']:.4f}, bound {t['bound_ms']:.6f})"
+                        for n, t in res["topk_merge"].items()
+                        if n != "floor_ms")
+            + f"; launch floor {res['topk_merge']['floor_ms']:.4f} ms")
         log(f"{label} ({src}): pq_adc Q=256 N=1,000,003 PQ8x8 "
             + ", ".join(f"k={k} {v['ms']:.4f} ms (library "
                         f"{v['library_ms']:.4f})"
@@ -3152,9 +3283,10 @@ def cli() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", metavar="PARENT_SRC",
-                    help="time pq_adc, the graph traversals (float32, "
-                         "SQ8, PQ8x8), l2_topk, rae_encode, flash_decode and "
-                         "the decode steps with the parent tree's src "
+                    help="time topk_merge, pq_adc, the graph traversals "
+                         "(float32, SQ8, PQ8x8), l2_topk, rae_encode, "
+                         "flash_decode and the decode steps with the "
+                         "parent tree's src "
                          "directory and this one's, in turns, and run "
                          "nothing else")
     ap.add_argument("--times", metavar="SRC", help=argparse.SUPPRESS)

@@ -2,7 +2,8 @@
 // cp.async copies, the order of (score, id) pairs and its 64-bit key, the
 // radix select that cuts a survivor list to its k best, and the pass that
 // merges the chunks' lists. Designed in l2_topk.cu (see its note); pq_adc.cu
-// runs the same selection over ADC scores.
+// runs the same selection over ADC scores, and topk_merge.cu merges shard
+// candidates under the same key (its wide rows' cut with pick_digit).
 //
 // The pair order: score descending, then id ascending. A pair's key is the
 // order-preserving bits of its score (-0 read as +0) above 0x7fffffff - id,

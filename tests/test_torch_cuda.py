@@ -538,26 +538,39 @@ def test_graph_traversal_limits_and_launch_counter(card_graph):
     assert graph_traverse_cuda.launches == 2
 
 
-def _merge_case(q_n, c, seed):
+def _merge_case(q_n, c, seed, pads=0.25, drained=False):
     """Candidates as the sharded merge sees them, on the card: ids unique
-    per row with about 25% pads, integer values (dense ties), signed zeros
-    and live ids at NEG_INF."""
+    per row with a share of pads (about 25%), integer values (dense ties),
+    signed zeros and live ids at NEG_INF; ``drained``: the first row all
+    pads."""
     g = torch.Generator().manual_seed(seed)
     ids = torch.argsort(torch.rand(q_n, 4 * c, generator=g), dim=1)[:, :c]
     ids = ids.to(torch.int32)
-    ids[torch.rand(q_n, c, generator=g) < 0.25] = -1
+    ids[torch.rand(q_n, c, generator=g) < pads] = -1
+    if drained:
+        ids[0] = -1
     vals = torch.randint(-3, 4, (q_n, c), generator=g).float()
     vals[torch.rand(q_n, c, generator=g) < 0.2] = -0.0
     vals[torch.rand(q_n, c, generator=g) < 0.05] = NEG_INF
     return vals.cuda(), ids.cuda()
 
 
+#: The kernel's boundary cases, (C, k) -> (share of pads, first row all
+#: pads): C on both sides of the narrow blocks' limit (1024), k = C at it,
+#: and more pads than C - k. The other cases: 25% pads, no drained row.
+MERGE_BOUNDARY = {(1024, 40): (0.25, True), (1025, 40): (0.25, True),
+                  (1024, 1024): (0.25, True), (1025, 1000): (0.6, True),
+                  (320, 300): (0.5, True)}
+
+
 @needs_card
 @pytest.mark.parametrize("q_n", [1, 257])
 @pytest.mark.parametrize("c,k", [(1, 3), (6, 10), (96, 16), (320, 40),
-                                 (1000, 1000), (16384, 2048)])
+                                 (1000, 1000), (16384, 2048),
+                                 *MERGE_BOUNDARY])
 def test_topk_merge_kernel_matches_plain(q_n, c, k):
-    vals, ids = _merge_case(q_n, c, q_n + c + k)
+    pads, drained = MERGE_BOUNDARY.get((c, k), (0.25, False))
+    vals, ids = _merge_case(q_n, c, q_n + c + k, pads, drained)
     v, i = topk_merge(vals, ids, k)
     torch.cuda.synchronize()
     vr, ir = topk_merge_ref(vals, ids, k)
