@@ -19,7 +19,12 @@ scan them with the hand-written ``pq_adc`` kernel, rerank.
 ``RAE64,HNSW32,SQ8,Rerank4`` / ``RAE64,HNSW32,PQ8x8,Rerank4``: the graph
 with a code payload, a search one launch of the same traversal scoring the
 codes with the hand-written ``graph_beam_q`` hop's device code.
-Two model serving paths feed such an index its embeddings:
+The ``Mut`` prefix wraps any of these stacks for live inserts, tombstone
+deletes and rebuilds (``api/mutable.py``: the masks reach ``l2_topk``, the
+traversals and ``topk_merge``), and the paper's Table 1 baselines (PCA,
+RP, MDS, Isomap, UMAP) take the RAE's place, the affine ones through the
+same ``rae_encode`` kernel. Two model serving paths feed such an index
+its embeddings:
 two-tower-retrieval (the user tower's history bag through the hand-written
 ``embedding_bag`` kernel) and llama3.2-1b (prefill, and decode steps whose
 attention is the hand-written ``flash_decode`` kernel over the KV cache).
@@ -86,11 +91,31 @@ Phases:
    same tokens (relative error < 0.06) and to the plain path; decode_32k
    cut to B=32 and long_500k (B=1, 524,288 positions), 8 steps each from a
    seeded cache: step time, tokens per second, the idle share of a step;
-   and the decode kernel's time at both cells' shapes.
+   and the decode kernel's time at both cells' shapes;
+9. the paper's Table 1 baselines, its theory and live mutation: (a) the
+   RAE (3000 steps) and PCA, RP, MDS, Isomap and UMAP (cut, see
+   ``UMAP_CUT``) at m = 256 on ``imdb_like`` 10,000 x 768, P_overall top-5
+   (euclidean, cosine) on the card, each affine transform's ``rae_encode``
+   kernel against its plain version, Isomap's min-plus geodesics on the
+   card against the CPU's, Eq. 15 and 16 on the RAE's W_e; (b)
+   ``PCA64,Flat,Rerank4`` and ``PCA64,IVF256,Rerank4`` on phase 2's
+   corpus; (c) ``Mut,RAE64,Flat,Rerank4`` and ``Mut,RAE64,IVF256,Rerank4``
+   on phase 5's corpus and fit: 10,000 held-out rows added in 4 batches,
+   each found as itself, 10,000 ids deleted and never surfacing, the
+   masked scan against its plain version, one ``rebuild()`` (the Flat
+   stack's answers unchanged); (d) the three ``Mut`` graph stacks (f32,
+   SQ8, PQ8x8) over phase 4's graph: 1,024 inserts, 2,048 deletes with the
+   entry node, the one-launch traversal equal to the plain-hop loop under
+   the mask, f32 recall@10 >= 0.9 over the alive rows; (e) the drift
+   monitor quiet on rows near the corpus and tripping a reducer retrain on
+   rows off its manifold; (f) ``Mut,RAE64,Shard8,IVF256,Rerank4``, an
+   ``add`` that rebuilds the sharded base, a delete, ``topk_merge`` under
+   the mask.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
 times ``topk_merge`` (Q = 256 and 1 at C = 320, k = 40; Q = 256 at C =
-16384, k = 2048), ``pq_adc`` (k = 320 and 2048), a phase-4-shaped graph
+16384, k = 2048), ``pq_adc`` (k = 320 and 2048), the IVF probes at the
+shapes of phases 5 and 6, a phase-4-shaped graph
 search over float32 rows, an SQ8 and a PQ8x8 payload (a 256-query batch
 and one query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``,
 ``flash_decode`` and the llama decode steps with the port in
@@ -98,9 +123,10 @@ and one query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``,
 tree's, in turns (parent, change, change, parent), each in a process of
 its own, on one card.
 
-Every launch counter is set to 0 just before phases 3 to 8 drive their
+Every launch counter is set to 0 just before phases 3 to 9 drive their
 paths and read just after; a kernel of the path that did not launch fails
-the run. The last lines are a ``kernels`` JSON object, the card's
+the run. Phase 9's launches join the ``kernels`` line (``launches``, and
+``launches_phase9`` for its share). The last lines are a ``kernels`` JSON object, the card's
 name and power limit, and ``{"ok": true, "device": ...}``. A phase that
 fails is reported and the next one runs; if any failed, the script prints
 no result and exits with code 1. Without a CUDA card it exits with code 2
@@ -1019,8 +1045,13 @@ def phase_acceptance(device: str, steps: int = 1000) -> dict[str, float]:
         if not same:
             failed.append(f"{spec}: load_index answers differ from the "
                           f"saved index's")
+    ACCEPTANCE.update(recalls)
     check(not failed, "; ".join(failed))
     return recalls
+
+
+#: phase 2's recall@10 a spec, for phase 9's baseline stacks
+ACCEPTANCE: dict = {}
 
 
 # ---------------------------------------------------------------------------
@@ -1529,15 +1560,35 @@ def hop_time(launches: int, g: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 5: the sharded IVF stack RAE64,Shard8,IVF256,Rerank4 at full width
 # ---------------------------------------------------------------------------
-@functools.cache
 def full_data(n: int, n_queries: int) -> tuple[np.ndarray, np.ndarray, float]:
     """``imdb_like`` at ``n`` rows and ``n_queries`` held-out queries (rows
-    shuffled), made once for phases 5 and 6; and the seconds it took."""
-    from repro_torch.data import paper_dataset
+    shuffled), made once for phases 5, 6 and 9; and the seconds it took.
+    The draw is ``paper_dataset("imdb_like", n + n_queries, seed=0)``
+    byte for byte; :data:`HOLDOUT` rows more of the same mixture, drawn
+    apart (``holdout_rows``), are what phase 9 adds to a live index: rows
+    of the distribution the reducer was fitted on."""
+    data, _, seconds = _full_draw(n, n_queries)
+    return data[:n], data[n:], seconds
+
+
+#: further rows of ``full_data``'s mixture, held out of its draw
+HOLDOUT = 10_000
+
+
+@functools.cache
+def _full_draw(n: int, n_queries: int
+               ) -> tuple[np.ndarray, np.ndarray, float]:
+    from repro_torch.data import paper_dataset_with_holdout
 
     t0 = time.perf_counter()
-    data = paper_dataset("imdb_like", n=n + n_queries, seed=0)
-    return data[:n], data[n:], time.perf_counter() - t0
+    data, held = paper_dataset_with_holdout("imdb_like", n + n_queries,
+                                            HOLDOUT, seed=0)
+    return data, held, time.perf_counter() - t0
+
+
+def holdout_rows(n: int, n_queries: int) -> np.ndarray:
+    """The :data:`HOLDOUT` rows drawn beside ``full_data(n, n_queries)``."""
+    return _full_draw(n, n_queries)[1]
 
 
 @functools.cache
@@ -3059,6 +3110,8 @@ def redesign_times(src: str, graph_path: str) -> dict:
                 lambda: torch.topk(2.0 * (q @ d.T) - d_sq, k), reps=10)}
     del q, d, d_sq
     free_card()
+    out.update(ivf_probe_times(g))
+    free_card()
     out["graph"] = graph_times(graph_path)
     out["graph_sq8"] = graph_times(graph_path, "sq8")
     out["graph_pq"] = graph_times(graph_path, "pq")
@@ -3102,6 +3155,36 @@ def redesign_times(src: str, graph_path: str) -> dict:
                      "flash_decode_gb_s": live / entry["ms"] / 1e6}
         del state, lg, tok
         free_card()
+    return out
+
+
+def ivf_probe_times(g: torch.Generator) -> dict:
+    """The IVF probes at the shapes of phase 5's ``IVF256`` twin (k1 = 40)
+    and phase 6's ``IVF256,PQ8x8`` (k1 = 320): 256 queries probing 16 of
+    256 seeded lists over 1,000,003 rows (the build's cap, 2.5x the mean
+    list), d = 64, PQ8x8 codes; each a search's card time."""
+    from repro_torch.search import ivf as ivf_lib
+    from repro_torch.search import quantize as qz
+
+    n, n_cells, d, nprobe = 1_000_003, 256, 64, 16
+    cap = int(np.ceil(2.5 * n / n_cells))
+    slot = torch.randperm(n_cells * cap, device="cuda", generator=g)
+    lists = torch.where(slot < n, slot, -1).reshape(n_cells, cap).to(
+        torch.int32)
+    mask = lists >= 0
+    index = ivf_lib.IVFIndex(
+        centroids=torch.randn(n_cells, d, device="cuda", generator=g),
+        lists=lists, list_mask=mask, spill=0,
+        list_vecs=torch.randn(n_cells, cap, d, device="cuda", generator=g))
+    q = torch.randn(256, d, device="cuda", generator=g)
+    out = {"ivf_probe": {"k": 40, "ms": cuda_ms(
+        lambda: ivf_lib.search(index, q, 40, nprobe=nprobe), reps=10)}}
+    codes = torch.randint(0, 256, (n_cells, cap, 8), device="cuda",
+                          generator=g, dtype=torch.uint8)
+    cb = torch.randn(8, 256, d // 8, device="cuda", generator=g)
+    out["ivf_pq_probe"] = {"k": 320, "ms": cuda_ms(
+        lambda: qz.ivf_pq_search(index.centroids, lists, codes, mask, cb, q,
+                                 320, nprobe), reps=10)}
     return out
 
 
@@ -3153,6 +3236,9 @@ def ab(parent_src: str) -> int:
                 f"{res[key]['single_ms']:.3f} ms"
                 for name, key in (("SQ8", "graph_sq8"),
                                   ("PQ8x8", "graph_pq"))))
+        log(f"{label} ({src}): IVF probes Q=256 over 1,000,003 rows, 16 "
+            f"of 256 lists: flat k=40 {res['ivf_probe']['ms']:.4f} ms, "
+            f"PQ8x8 k=320 {res['ivf_pq_probe']['ms']:.4f} ms")
         log(f"{label} ({src}): l2_topk Q=256 N=1M d=64 "
             + ", ".join(f"k={k} {v['ms']:.4f} ms (matmul + topk "
                         f"{v['library_ms']:.4f})"
@@ -3182,6 +3268,622 @@ def ab(parent_src: str) -> int:
     print(json.dumps({"ab": runs}))
     print(smi)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the Table 1 baselines, the theory and live mutation
+# ---------------------------------------------------------------------------
+TABLE1_METHODS = ("rae", "pca", "rp", "mds", "isomap", "umap")
+#: UMAP-lite's fit is host numpy (a dense 4096^2 ``eigh`` and 100 epochs of
+#: ``np.add.at`` SGD over its edge list, 256 wide at m = 256: over a
+#: minute a fit); phase 9 cuts it to this, the other five run at their
+#: defaults
+UMAP_CUT = {"max_train": 2048, "n_epochs": 50}
+#: the methods whose transform is the ``rae_encode`` GEMM
+AFFINE = ("rae", "pca", "rp", "mds", "isomap")
+MUT_SPECS_1M = ("Mut,RAE64,Flat,Rerank4", "Mut,RAE64,IVF256,Rerank4")
+MUT_GRAPH_SPECS = ("Mut,RAE64,HNSW32,Rerank4", "Mut,RAE64,HNSW32,SQ8,Rerank4",
+                   "Mut,RAE64,HNSW32,PQ8x8,Rerank4")
+
+
+@functools.cache
+def card_label() -> str:
+    """``nvidia-smi``'s card name and power limit, printed beside times."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+class PathLaunches:
+    """Launch counts of the kernels on phase 9's paths, summed over the
+    stretches that drive them (``with launches.main():``); launches made
+    to compare a kernel with its plain version fall outside them."""
+
+    def __init__(self):
+        from repro_torch.kernels.graph_beam.kernel import graph_traverse_cuda
+        from repro_torch.kernels.graph_beam_q.kernel import (
+            graph_traverse_q_cuda)
+        from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+        from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
+        from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
+
+        # the kernels line's names: the traversals are the graph kernels'
+        self.counters = {"rae_encode": rae_encode_cuda,
+                         "l2_topk": l2_topk_scan_cuda,
+                         "graph_beam": graph_traverse_cuda,
+                         "graph_beam_q": graph_traverse_q_cuda,
+                         "topk_merge": topk_merge_cuda}
+        self.total = {k: 0 for k in self.counters}
+
+    @contextlib.contextmanager
+    def main(self):
+        for fn in self.counters.values():
+            fn.launches = 0
+        yield
+        for k, fn in self.counters.items():
+            self.total[k] += fn.launches
+
+
+def reducer_plain(r, x: torch.Tensor) -> torch.Tensor:
+    """An affine reducer's transform with the plain version of the
+    ``rae_encode`` GEMM, on the same operands."""
+    from repro_torch.kernels.rae_encode.ref import rae_encode_ref
+
+    if r.kind == "rae":
+        z = rae_encode_ref(x, r.params_["w_e"], False)
+        return z + r.params_["b_e"] if "b_e" in r.params_ else z
+    impl = r._impl
+    if r.kind == "pca":
+        return rae_encode_ref(x - impl._on("mean_", x.device),
+                              impl._on("components_", x.device), False)
+    if r.kind == "rp":
+        return rae_encode_ref(x, impl._on("w_", x.device), False)
+    w = impl._on("w_", x.device)
+    return rae_encode_ref(x, w[:-1], False) + w[-1]
+
+
+def phase9_table1(device: str, launches: PathLaunches, n: int = 10_000,
+                  rae_steps: int = 3000) -> dict:
+    """Table 1 at the paper's size: ``imdb_like`` 10,000 x 768 split 9:1,
+    m = 256, top-5, euclidean and cosine, each method fitted on the 9,000
+    and held on the 1,000 (``benchmarks/table1_knn.py``'s protocol, the
+    RAE at its defaults: 3000 steps, wd 1e-2, no lambda grid). Checks each
+    affine transform's kernel against its plain version, Isomap's
+    geodesics on the card against the CPU's min-plus, and Eq. 15 on the
+    RAE's W_e."""
+    from repro_torch import api
+    from repro_torch.core import baselines, metrics, spectral, theory
+    from repro_torch.core import rae as rae_lib
+    from repro_torch.data import paper_dataset, train_test_split
+
+    data = paper_dataset("imdb_like", n, seed=0)
+    tr, te = train_test_split(data)
+    x_all = torch.as_tensor(data, device=device)
+    x_te = torch.as_tensor(te, device=device)
+    out, fitted = {}, {}
+    for name in TABLE1_METHODS:
+        kw = ({"steps": rae_steps, "weight_decay": 1e-2, "seed": 0}
+              if name == "rae" else UMAP_CUT if name == "umap" else {})
+        r = api.make_reducer(name, 256, device=device, **kw)
+        with launches.main():
+            t0 = time.perf_counter()
+            r.fit(tr)
+            sync()
+            t_fit = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            z = r.transform(x_te)
+            sync()
+            t_tr = time.perf_counter() - t0
+        p = {m: metrics.preservation_accuracy(x_te, z, k=5, metric=m)
+             for m in ("euclidean", "cosine")}
+        check(z.shape == (te.shape[0], 256) and bool(torch.isfinite(z).all())
+              and all(0.0 <= v <= 1.0 for v in p.values()),
+              f"{name}: reduced rows finite, P_overall in [0, 1]: {p}")
+        err = None
+        if name in AFFINE:
+            got, want = r.transform(x_all), reducer_plain(r, x_all)
+            err = max_rel_err(got, want)[1]
+            check(err <= ENCODE_TOL, f"{name}: transform (rae_encode) vs "
+                                     f"plain {err} > {ENCODE_TOL}")
+        fitted[name] = r
+        out[name] = {"fit_s": t_fit, "transform_s": t_tr, "p": p,
+                     "err": err}
+        log(f"phase 9: table 1 {name}: fit {t_fit:.2f} s, transform of "
+            f"{te.shape[0]} rows {t_tr * 1e3:.2f} ms; P_overall top-5 "
+            f"euclidean {p['euclidean']:.4f}, cosine {p['cosine']:.4f}"
+            + ("" if err is None else
+               f"; kernel vs plain on {n} rows {err:.2e} of max(1, max "
+               f"|plain|)") + f" [{card_label()}]")
+    rank = sorted(out, key=lambda k: -out[k]["p"]["euclidean"])
+    log(f"phase 9: table 1 order by euclidean P_overall: {' > '.join(rank)}"
+        f" (the paper's: RAE, PCA above MDS, Isomap, UMAP)")
+
+    # Isomap's geodesics: every min-plus round on the card against the
+    # CPU's on the same input rows (64 rows a round), then the whole chain
+    iso = fitted["isomap"]._impl
+    x = np.asarray(tr, np.float32)
+    if x.shape[0] > iso.max_train:
+        x = x[np.random.default_rng(0).choice(x.shape[0], iso.max_train,
+                                              replace=False)]
+    graph = iso.knn_graph(x)
+    n = graph.shape[0]
+    gd = torch.as_tensor(graph, device=device)
+    t0 = time.perf_counter()
+    rounds = int(np.ceil(np.log2(max(n, 2))))
+    for rnd in range(rounds):
+        nxt = baselines._minplus_square_chunked(gd)
+        rows = torch.as_tensor(np.random.default_rng(rnd).choice(
+            n, 64, replace=False))
+        d_cpu = gd.cpu()
+        want = torch.amin(d_cpu[rows][:, :, None] + d_cpu[None], dim=1)
+        check(torch.equal(nxt[rows.to(device)].cpu(), want),
+              f"isomap: min-plus round {rnd} on the card differs from the "
+              f"CPU's")
+        gd = nxt
+    t_check = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    geo = baselines.geodesics(graph, device)
+    t_geo = time.perf_counter() - t0
+    check(np.array_equal(geo, gd.cpu().numpy()),
+          "isomap: geodesics() differ from the checked rounds")
+    log(f"phase 9: isomap geodesics n={n}: {rounds} min-plus rounds on the "
+        f"card in {t_geo:.3f} s, each bit-equal to the CPU's on 64 rows "
+        f"({t_check:.2f} s with the checks); unreachable pairs "
+        f"{int(np.isinf(geo).sum())} [{card_label()}]")
+
+    # Eq. 15-16 on the RAE's encoder
+    w = rae_lib.encoder_matrix(fitted["rae"].params_)
+    holds = bool(theory.norm_bounds_hold(w, x_all))
+    st = spectral.analyze(w)
+    cf = float(theory.certified_fraction(w, x_te, 5))
+    dist = theory.empirical_distortion(w, x_all)
+    log(f"phase 9: RAE W_e [{w.shape[0]}, {w.shape[1]}]: sigma_max "
+        f"{float(st.sigma_max):.4f}, sigma_min {float(st.sigma_min):.4f}, "
+        f"kappa {float(st.condition_number):.3f}, effective rank "
+        f"{float(st.effective_rank):.1f}; ||Wx||/||x|| over the {n} rows "
+        f"in [{float(dist['ratio_min']):.4f}, {float(dist['ratio_max']):.4f}]"
+        f"; Eq. 15 bounds hold on the rows' row-space part: {holds}; "
+        f"certified fraction (Eq. 16, top-5, the {te.shape[0]} test rows) "
+        f"{cf:.4f}")
+    check(holds, "Eq. 15: norm_bounds_hold is false on the corpus rows")
+    return out
+
+
+def phase9_factory(device: str, launches: PathLaunches) -> dict:
+    """``PCA64,Flat,Rerank4`` and ``PCA64,IVF256,Rerank4`` on phase 2's
+    20k x 256 corpus, recall@10 beside ``RAE64``'s (no gate: the
+    baseline)."""
+    from repro_torch import api
+    from repro_torch.core import metrics
+
+    corpus, queries = acceptance_data()
+    gt = metrics.knn_indices(torch.as_tensor(queries, device=device),
+                             torch.as_tensor(corpus, device=device), 10)
+    out = {}
+    for spec in ("PCA64,Flat,Rerank4", "PCA64,IVF256,Rerank4"):
+        idx = api.index_factory(spec, device=device)
+        with launches.main():
+            t0 = time.perf_counter()
+            idx.build(corpus)
+            sync()
+            t_build = time.perf_counter() - t0
+            res = idx.search(queries, 10)
+        check(res.indices.shape == (64, 10) and (res.indices >= 0).all()
+              and np.isfinite(res.scores).all(),
+              f"{spec}: answers full, finite, in range")
+        out[spec] = metrics.recall_at_k(torch.as_tensor(res.indices,
+                                                        device=device), gt)
+        rae = ACCEPTANCE.get(spec.replace("PCA", "RAE"))
+        log(f"phase 9: {spec} on 20000x256, 64 queries: recall@10 "
+            f"{out[spec]:.4f} (RAE64's in phase 2: "
+            f"{'not run' if rae is None else f'{rae:.4f}'}); build "
+            f"{t_build:.2f} s, search {res.latency_s * 1e3:.3f} ms "
+            f"[{card_label()}]")
+    return out
+
+
+def tie_order_ok(res) -> bool:
+    """Equal scores in an answer row list their ids ascending."""
+    s, i = res.scores, res.indices
+    tied = (s[:, 1:] == s[:, :-1]) & (i[:, 1:] >= 0)
+    return bool((i[:, 1:][tied] > i[:, :-1][tied]).all())
+
+
+def rebuild_kept(before, after) -> tuple[int, int]:
+    """Of the answer rows of ``before`` and ``after`` (lists of search
+    results), how many are equal (ids and scores), and how many differ
+    otherwise than in the order of ids at a tied score: a score that
+    differs, or an id that differs where its score is not tied in its row
+    (nor equal to the row's last, which may tie a row left out)."""
+    sb = np.concatenate([r.scores for r in before])
+    sa = np.concatenate([r.scores for r in after])
+    ib = np.concatenate([r.indices for r in before])
+    ia = np.concatenate([r.indices for r in after])
+    tied = sb == sb[:, -1:]
+    tied[:, 1:] |= sb[:, 1:] == sb[:, :-1]
+    tied[:, :-1] |= sb[:, :-1] == sb[:, 1:]
+    same = (ib == ia).all(axis=1) & (sb == sa).all(axis=1)
+    bad = ~((sb == sa).all(axis=1) & ((ib == ia) | tied).all(axis=1))
+    return int(same.sum()), int(bad.sum())
+
+
+def phase9_mutation_1m(device: str, launches: PathLaunches,
+                       n: int = 1_000_003, n_extra: int = 10_000,
+                       steps: int = 3000) -> dict:
+    """``Mut,RAE64,Flat,Rerank4`` and ``Mut,RAE64,IVF256,Rerank4`` on phase
+    5's 1,000,003 x 768 corpus and fit (no cut): 10,000 further rows of
+    the corpus' ``imdb_like`` mixture (``holdout_rows``) added in 4
+    batches of 2,500, each found as itself at rank 1; 10,000 seeded ids
+    deleted (1,000 of them new), none surfacing, the masked scan equal to
+    its plain version; one ``rebuild()``, after which every answer of both
+    stacks is the one before it, ids in a row's order of tied scores
+    aside; phase 5's 1,024 held-out queries in batches of 256 before the
+    adds, after the delete and after the rebuild."""
+    from repro_torch import api
+    from repro_torch.kernels.l2_topk import l2_topk
+    from repro_torch.kernels.l2_topk.ref import l2_topk_ref
+
+    nq, batch, per_add = 1024, 256, n_extra // 4
+    corpus, queries, _ = full_data(n, nq)
+    reducer, _ = fitted_rae(n, nq, steps, device)
+    extra = holdout_rows(n, nq)[:n_extra]
+    rng = np.random.default_rng(9)
+    n_dead = n_extra                  # 9 of 10 old, 1 of 10 new
+    dead = np.sort(np.concatenate([
+        rng.choice(n, n_dead - n_dead // 10, replace=False),
+        n + rng.choice(n_extra, n_dead // 10, replace=False)])
+    ).astype(np.int64)
+    out = {}
+
+    def answers(idx):
+        rs = [idx.search(queries[s:s + batch], 10)
+              for s in range(0, nq, batch)]
+        return rs, [r.latency_s for r in rs]
+
+    for spec in MUT_SPECS_1M:
+        idx = api.index_factory(spec, device=device)
+        idx._inner.reducer = reducer        # phase 5's fit, shared
+        t = {}
+        with launches.main():
+            t0 = time.perf_counter()
+            idx.build(corpus)
+            sync()
+            t["build"] = time.perf_counter() - t0
+            clean, lat_clean = answers(idx)
+            t["add"] = []
+            for b in range(4):
+                t0 = time.perf_counter()
+                ext = idx.add(extra[b * per_add:(b + 1) * per_add])
+                sync()
+                t["add"].append(time.perf_counter() - t0)
+                check(np.array_equal(ext, np.arange(n + b * per_add,
+                                                    n + (b + 1) * per_add)),
+                      f"{spec}: add returned ids {ext[:3]}...")
+            hits = 0
+            for s in range(0, n_extra, batch):
+                r = idx.search(extra[s:s + batch], 10)
+                hits += int((r.indices[:, 0] == n + s + np.arange(
+                    r.indices.shape[0])).sum())
+            t0 = time.perf_counter()
+            deleted = idx.delete(dead)
+            t["delete"] = time.perf_counter() - t0
+            masked, lat_masked = answers(idx)
+            adversarial = idx.search(np.concatenate(
+                [corpus[dead[dead < n][:batch // 2]],
+                 extra[dead[dead >= n][:batch // 2] - n]]), 10)
+            t0 = time.perf_counter()
+            idx.rebuild()
+            sync()
+            t["rebuild"] = time.perf_counter() - t0
+            rebuilt, lat_rebuilt = answers(idx)
+        check(hits == n_extra, f"{spec}: {hits}/{n_extra} added rows found "
+                               f"as themselves at rank 1")
+        check(deleted == n_dead, f"{spec}: delete tombstoned {deleted}")
+        bad = sum(int(np.isin(r.indices, dead).sum())
+                  for r in masked + [adversarial] + rebuilt)
+        check(bad == 0, f"{spec}: {bad} tombstoned ids surfaced")
+        st = idx.mutation_stats()
+        check(st["tombstones"] == 0 and idx.n_rebuilds == 1
+              and idx.n_reducer_retrains == 0
+              and idx.epoch == 4 + 1 + idx.n_rebuilds,
+              f"{spec}: after rebuild: {st}, epoch {idx.epoch}")
+        same, moved = rebuild_kept(masked, rebuilt)
+        ties = all(tie_order_ok(r) for r in masked + rebuilt)
+        check(ties, f"{spec}: a score tie not listed by ascending id")
+        # the rebuild compacts (and the IVF tier re-clusters); the external
+        # ids and every answer stay (C8)
+        check(moved == 0, f"{spec}: rebuild changed {moved}/{nq} answers "
+                          f"otherwise than in the order of tied ids")
+        if "Flat" in spec:
+            # the exact tier: not even the order of tied ids moves
+            check(same == nq,
+                  f"{spec}: rebuild changed {nq - same}/{nq} answers")
+            # under a seeded mask of n_dead rows, the kernel's stage 1 ==
+            # the plain scan's, on the same reduced rows
+            inner = idx._inner
+            zq = inner.reducer.transform(torch.as_tensor(
+                queries[:batch], device=device))
+            k1 = inner.stage1_k(10)
+            al = torch.ones(inner.ntotal, dtype=torch.bool, device=device)
+            al[torch.as_tensor(rng.choice(inner.ntotal, n_dead,
+                                          replace=False), device=device)] = 0
+            kv, ki = l2_topk(zq, inner.base._db, k1, db_mask=al)
+            pv, pi = l2_topk_ref(zq, inner.base._db, k1, db_mask=al)
+            check(torch.equal(ki, pi) and max_rel_err(kv, pv)[1] <= SCORE_TOL,
+                  f"{spec}: masked l2_topk kernel != plain")
+            check(not bool((~al)[ki[ki >= 0].long()].any()),
+                  f"{spec}: the masked kernel returned a masked row")
+        # the host copy of every row, re-concatenated on each add
+        t0 = time.perf_counter()
+        grown = np.concatenate([idx._corpus, extra[:per_add]])
+        t_concat = time.perf_counter() - t0
+        del grown
+        log(f"phase 9: {spec} on imdb_like {n}x768 (phase 5's fit): build "
+            f"{t['build']:.2f} s; add 4 x {per_add}: "
+            f"{[round(x, 3) for x in t['add']]} s (the host copy "
+            f"{idx._corpus.nbytes / 1e9:.2f} GB, one concatenation "
+            f"{t_concat:.3f} s); {n_extra} added rows found as themselves "
+            f"at rank 1: {hits}; delete {n_dead} ids "
+            f"{t['delete'] * 1e3:.2f} ms;"
+            f" rebuild {t['rebuild']:.2f} s; drift violation rate "
+            f"{st.get('drift_violation_rate', 0):.4f} [{card_label()}]")
+        log(f"phase 9: {spec}: {batch}-query batches: clean "
+            f"{spread(lat_clean)}, under {n_dead} tombstones "
+            f"{spread(lat_masked)}, after the rebuild {spread(lat_rebuilt)}; "
+            f"tombstoned ids surfaced 0 (of {10 * (2 * nq + batch)} "
+            f"answers); answers unchanged by the rebuild {same}/{nq}, "
+            f"changed otherwise than in tied ids' order {moved}; score "
+            f"ties listed by ascending id: {ties}")
+        out[spec] = {"t": t, "hits": hits, "same": same,
+                     "lat": (lat_clean, lat_masked, lat_rebuilt)}
+        del idx, clean, masked, rebuilt
+        free_card()
+    return out
+
+
+def mutable_graph_stack(spec: str, twin, corpus: np.ndarray, device: str):
+    """``spec`` (a ``Mut`` graph stack) over a copy of phase 4's graph and
+    reducer: what ``build`` makes from the same corpus, reducer and seed
+    (the host graph build is deterministic and takes 60-75 s a stack), the
+    code payload trained as ``HNSWIndex.build`` trains it."""
+    from repro_torch import api
+    from repro_torch.search import hnsw
+
+    mut = api.index_factory(spec, device=device)
+    two, g = mut._inner, twin.base._g
+    base = two.base
+    base._g = hnsw.HNSWGraph(vecs=g.vecs.copy(), levels=g.levels.copy(),
+                             links0=g.links0.copy(), links=g.links.copy(),
+                             entry=g.entry, M=g.M)
+    if base.quant is not None:
+        base._g.codec = hnsw.make_graph_codes(
+            base._g.vecs, base.quant, m=base.pq_m, bits=base.pq_bits,
+            iters=base.kmeans_iters, seed=base.seed, device=device)
+    base._upload()
+    two.reducer = twin.reducer
+    two._db_full = twin._db_full
+    return mut._adopt(corpus)
+
+
+def phase9_graphs(device: str, launches: PathLaunches, n_new: int = 1024,
+                  n_dead: int = 2048) -> dict:
+    """The three ``Mut`` graph stacks on phase 4's 20k x 256 corpus and
+    reducer (cut as phase 4 is): 1,024 rows inserted, 2,048 ids deleted
+    (the entry node among them), phase 4's 1,024 noisy queries. The
+    one-launch traversal is held to the plain-hop loop under the mask."""
+    from repro_torch import api
+    from repro_torch.core import metrics
+    from repro_torch.kernels.graph_beam.ref import graph_beam_ref
+    from repro_torch.kernels.graph_beam_q.ref import graph_beam_q_ref
+    from repro_torch.search import hnsw
+
+    corpus, queries = acceptance_data()
+    noisy = noisy_queries(corpus, 1024, seed=2)
+    new = noisy_queries(corpus, n_new, seed=4)
+    n = corpus.shape[0]
+    if "idx" not in GRAPH_TWIN:            # phases 4 and 6 failed
+        GRAPH_TWIN["idx"] = api.index_factory(
+            "RAE64,HNSW32,Rerank4", reducer_kw={"steps": 1000, "seed": 0},
+            device=device).build(corpus)
+    twin = GRAPH_TWIN["idx"]
+    full = np.concatenate([corpus, new])
+    out, recalls = {}, {}
+    for spec in MUT_GRAPH_SPECS:
+        mut = mutable_graph_stack(spec, twin, corpus, device)
+        g = mut._graph_index()._g
+        rng = np.random.default_rng(11)
+        with launches.main():
+            t0 = time.perf_counter()
+            ext = mut.add(new)
+            sync()
+            t_add = time.perf_counter() - t0
+            add_times = dict(mut._graph_index().add_times)
+            entry0 = g.entry                 # the entry after the insert
+            dead = np.sort(np.append(rng.choice(np.setdiff1d(
+                np.arange(n + n_new), [entry0]), n_dead - 1,
+                replace=False), entry0))
+            mut.delete(dead)
+            res = [mut.search(noisy[s:s + 256], 10)
+                   for s in range(0, len(noisy), 256)]
+        check(np.array_equal(ext, np.arange(n, n + n_new)),
+              f"{spec}: add ids")
+        check(g.entry != entry0 and mut._alive[g.entry],
+              f"{spec}: the tombstoned entry was not reassigned")
+        ids = np.concatenate([r.indices for r in res])
+        check(not np.isin(ids, dead).any(),
+              f"{spec}: a tombstoned id surfaced")
+        check((ids >= 0).all(), f"{spec}: an answer slot padded")
+        # recall@10 against the exact scan over the alive rows
+        alive_rows = np.flatnonzero(mut._alive)
+        gt = metrics.knn_indices(torch.as_tensor(noisy, device=device),
+                                 torch.as_tensor(full[alive_rows],
+                                                 device=device), 10)
+        gt = torch.as_tensor(alive_rows, device=device)[gt]
+        recall = metrics.recall_at_k(torch.as_tensor(ids, device=device), gt)
+        recalls[spec] = recall
+        # the one-launch traversal == the plain-hop loop, under the mask
+        inner = mut._inner
+        zq = inner.reducer.transform(torch.as_tensor(noisy, device=device))
+        k1 = inner.stage1_k(10)
+        ef = max(inner.base.ef_search, k1)
+        mask = mut._alive_dev
+        hop = graph_beam_ref if g.codec is None else graph_beam_q_ref
+        kern = hnsw.search_batched(g, zq, k1, ef_search=ef, alive=mask,
+                                   device=device)
+        plain = hnsw.search_batched(g, zq, k1, ef_search=ef, alive=mask,
+                                    device=device, hop=hop)
+        same = (all(torch.equal(a, b) for a, b in zip(kern[:3], plain[:3]))
+                and kern[3] == plain[3])
+        check(same, f"{spec}: under the mask the traversal kernel's ids, "
+                    f"scores, evals or hops differ from the plain-hop loop's")
+        log(f"phase 9: {spec} on {n}x256 (phase 4's graph and reducer): "
+            f"insert {n_new} rows {t_add:.2f} s (insert_batch on the host "
+            f"{add_times['insert_s']:.2f} s, re-pack + upload "
+            f"{add_times['upload_s'] * 1e3:.1f} ms of {g.ntotal} rows); "
+            f"delete {n_dead} ids, the entry {entry0} among them (now {g.entry}"
+            f"); 1024 noisy queries in batches of 256: {spread([r.latency_s for r in res])}"
+            f"; recall@10 against the exact scan over the alive rows "
+            f"{recall:.4f}; traversal == plain-hop loop under the mask "
+            f"(ids, scores, evals, hops {kern[3]}): {same} [{card_label()}]")
+        out[spec] = {"t_add": t_add, **add_times, "recall": recall}
+        del mut
+    f32 = recalls[MUT_GRAPH_SPECS[0]]
+    check(f32 >= 0.9, f"f32 graph recall@10 after mutation {f32} < 0.9")
+    return out
+
+
+def phase9_shared_rae(device: str):
+    """RAE64 fitted once (1000 steps) on phase 2's corpus for parts (e)
+    and (f)."""
+    from repro_torch import api
+
+    corpus, _ = acceptance_data()
+    r = api.make_reducer("rae", 64, steps=1000, seed=0, device=device)
+    return r.fit(corpus)
+
+
+def phase9_sharded(device: str, launches: PathLaunches, reducer) -> dict:
+    """``Mut,RAE64,Shard8,IVF256,Rerank4`` on phase 2's corpus: an ``add``
+    rebuilds the sharded base (it has no ``add``), then a delete and a
+    search; ``topk_merge`` launches under the mask."""
+    from repro_torch import api
+
+    corpus, queries = acceptance_data()
+    noisy = noisy_queries(corpus, 1024, seed=2)
+    new = noisy_queries(corpus, 100, seed=5)
+    n = corpus.shape[0]
+    mut = api.index_factory("Mut,RAE64,Shard8,IVF256,Rerank4", device=device)
+    mut._inner.reducer = reducer
+    dead = np.random.default_rng(12).choice(n + 100, 500, replace=False)
+    with launches.main():
+        mut.build(corpus)
+        t0 = time.perf_counter()
+        ext = mut.add(new)
+        sync()
+        t_add = time.perf_counter() - t0
+        selfq = mut.search(new, 10)
+        mut.delete(dead)
+        before = launches.counters["topk_merge"].launches
+        res = [mut.search(noisy[s:s + 256], 10)
+               for s in range(0, len(noisy), 256)]
+        merges = launches.counters["topk_merge"].launches - before
+    alive_new = ~np.isin(ext, dead)
+    # a row past its IVF cell's cap is not listed (the reference's spill),
+    # so a self-query is counted, not gated
+    self_hits = int((selfq.indices[:, 0] == ext).sum())
+    ids = np.concatenate([r.indices for r in res])
+    check(not np.isin(ids, dead).any() and (ids >= 0).all(),
+          "Shard8: a tombstoned id surfaced")
+    check(merges == len(res), f"Shard8: {merges} topk_merge launches for "
+                              f"{len(res)} masked searches")
+    log(f"phase 9: Mut,RAE64,Shard8,IVF256,Rerank4 on {n}x256: add 100 "
+        f"rows (rebuilds the sharded base) {t_add:.2f} s, {self_hits} found "
+        f"as themselves at rank 1; delete 500 ids ({int((~alive_new).sum())} of them new); "
+        f"1024 noisy queries in batches of 256 under the mask: "
+        f"{spread([r.latency_s for r in res])}, one topk_merge launch a "
+        f"search, no tombstone surfaced [{card_label()}]")
+    return {"t_add": t_add}
+
+
+def phase9_drift(device: str, launches: PathLaunches, reducer) -> dict:
+    """``Mut,RAE64,Flat,Rerank4`` on phase 2's corpus: 128 rows near the
+    corpus leave the Eq. 15 monitor quiet; 256 rows off the fitted
+    manifold (seeded Gaussian rows with their part in W_e's row space
+    removed, scaled to the corpus' mean norm: ||Wx||/||x|| near 0) trip
+    it, and ``add`` retrains the reducer and rebuilds."""
+    from repro_torch import api
+
+    corpus, _ = acceptance_data()
+    n = corpus.shape[0]
+    mut = api.index_factory("Mut,RAE64,Flat,Rerank4", device=device)
+    mut._inner.reducer = reducer
+    near = noisy_queries(corpus, 128, seed=6)
+    w = reducer.params_["w_e"].detach().cpu().numpy()       # [n, m]
+    basis = np.linalg.svd(w, full_matrices=False)[0]          # row(W)
+    rng = np.random.default_rng(13)
+    off = rng.standard_normal((256, corpus.shape[1])).astype(np.float32)
+    off -= (off @ basis) @ basis.T
+    off *= (np.linalg.norm(corpus, axis=1).mean()
+            / np.linalg.norm(off, axis=1, keepdims=True))
+    off = off.astype(np.float32)
+    with launches.main():
+        mut.build(corpus)
+        fp0 = mut._inner.reducer.fingerprint()
+        mut.add(near)
+        quiet = (mut.n_reducer_retrains, mut._drift.violation_rate)
+        t0 = time.perf_counter()
+        ext = mut.add(off)
+        sync()
+        t_retrain = time.perf_counter() - t0
+        probe = np.concatenate([near, corpus[:256]])
+        res = mut.search(probe, 10)
+    want = np.concatenate([np.arange(n, n + 128), np.arange(256)])
+    hits = int((res.indices[:, 0] == want).sum())
+    check(quiet[0] == 0, f"drift: 128 rows near the corpus retrained "
+                         f"(violation rate {quiet[1]})")
+    check(mut.n_reducer_retrains == 1 and mut.n_rebuilds == 1
+          and mut._inner.reducer.fingerprint() != fp0
+          and mut._drift.observed == 0,
+          f"drift: off-manifold rows did not retrain once: "
+          f"{mut.mutation_stats()}")
+    check(hits == len(probe), f"drift: {hits}/{len(probe)} self-queries at "
+                              f"rank 1 after the retrain")
+    log(f"phase 9: drift on Mut,RAE64,Flat,Rerank4 ({n}x256): 128 rows "
+        f"near the corpus, violation rate {quiet[1]:.4f}, no retrain; 256 "
+        f"rows off the manifold tripped it: add + retrain (1000 steps) + "
+        f"rebuild {t_retrain:.2f} s, reducer retrains "
+        f"{mut.n_reducer_retrains}, fingerprint changed; self-queries at "
+        f"rank 1 after: {hits}/{len(probe)} (the 128 added and 256 corpus "
+        f"rows); off-manifold ids {ext[0]}..{ext[-1]} [{card_label()}]")
+    return {"t_retrain": t_retrain}
+
+
+def phase9(device: str) -> dict:
+    """Every part of phase 9; returns its kernels' launch counts."""
+    launches = PathLaunches()
+    t = {}
+    for name, fn in (("table1", lambda: phase9_table1(device, launches)),
+                     ("factory", lambda: phase9_factory(device, launches)),
+                     ("mutation_1m",
+                      lambda: phase9_mutation_1m(device, launches)),
+                     ("graphs", lambda: phase9_graphs(device, launches))):
+        t0 = time.perf_counter()
+        fn()
+        t[name] = time.perf_counter() - t0
+        free_card()
+    t0 = time.perf_counter()
+    reducer = phase9_shared_rae(device)
+    phase9_sharded(device, launches, reducer)
+    phase9_drift(device, launches, reducer)
+    t["sharded_drift"] = time.perf_counter() - t0
+    log(f"phase 9: main-path launches {launches.total}; seconds by part "
+        f"{ {k: round(v, 1) for k, v in t.items()} }")
+    for k in ("rae_encode", "l2_topk", "graph_beam", "graph_beam_q",
+              "topk_merge"):
+        check(launches.total[k] > 0, f"phase 9: {k} never launched")
+    return launches.total
 
 
 def main() -> int:
@@ -3258,12 +3960,16 @@ def main() -> int:
     kernels.extend(run("phase 6", quantized) or [])
     kernels.append(run("phase 7", two_tower))
     kernels.append(run("phase 8", llama))
+    p9 = run("phase 9", phase9, "cuda")
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
     for entry in kernels:
         entry["max_abs_err"] = errs[entry["name"]]
+        # phase 9's paths (baselines, theory, mutation) launch these too
+        entry["launches_phase9"] = p9.get(entry["name"], 0)
+        entry["launches"] += entry["launches_phase9"]
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
 
     smi = subprocess.run(

@@ -1,7 +1,14 @@
 """Retrieval API of the port: ``Reducer`` + ``VectorIndex`` (FAISS-style),
-the counterpart of ``repro.api`` for the stages ported so far."""
+the counterpart of ``repro.api``: the reducers (RAE and the Table 1
+baselines), every index tier, ``MutableIndex`` (factory prefix ``Mut``)
+and the factory."""
 from .reducer import (
+    GaussianRPReducer,
+    IsomapReducer,
+    MDSLinearReducer,
+    PCAReducer,
     RAEReducer,
+    UMAPLiteReducer,
     Reducer,
     get_reducer,
     list_reducers,
@@ -25,16 +32,22 @@ from .index import (
 from .graph import HNSWIndex
 from .quantized import IVFPQIndex, IVFSQ8Index, PQIndex, SQ8Index
 from .sharded import ShardedIndex
+from .mutable import MutableIndex
 from .factory import IndexSpec, index_factory, parse_index_spec
 
 __all__ = [
     "FlatIndex",
+    "GaussianRPReducer",
     "HNSWIndex",
     "IVFFlatIndex",
     "IVFPQIndex",
     "IVFSQ8Index",
     "IndexSpec",
+    "IsomapReducer",
     "KNOB_LADDER",
+    "MDSLinearReducer",
+    "MutableIndex",
+    "PCAReducer",
     "PQIndex",
     "RAEReducer",
     "Reducer",
@@ -43,6 +56,7 @@ __all__ = [
     "SearchResult",
     "ShardedIndex",
     "TwoStageIndex",
+    "UMAPLiteReducer",
     "VectorIndex",
     "get_reducer",
     "index_factory",

@@ -11,13 +11,13 @@ case-insensitive)::
     quant    := "SQ8" | "PQ" m "x" bits     # bits in 1..8
     rerank   := "Rerank" factor             # requires a reducer stage
 
-``index_factory`` builds ``[RAE<m>,][Shard<S>,]stack[,Rerank<f>]`` for
-every stack of the grammar (the reference's ``_make_base`` mapping: ``SQ8``
-and ``PQ<m>x<bits>`` alone are the flat quantized tiers, after ``IVF<n>``
-the IVF-quantized ones, after ``HNSW<M>`` the graph's code payload); the
-``Mut`` prefix and the baseline reducers raise ``NotImplementedError``
-naming the ``ROADMAP.md`` item that ports them. ``str(spec)`` renders a
-parsed spec back canonically.
+``index_factory`` builds every spec of the grammar, as the reference's
+(its ``_make_base`` mapping: ``SQ8`` and ``PQ<m>x<bits>`` alone are the
+flat quantized tiers, after ``IVF<n>`` the IVF-quantized ones, after
+``HNSW<M>`` the graph's code payload); any registered reducer maps the
+corpus to R^``out_dim`` (the RAE or a Table 1 baseline), and the ``Mut``
+prefix wraps the whole stack in :class:`~repro_torch.api.mutable.
+MutableIndex`. ``str(spec)`` renders a parsed spec back canonically.
 """
 from __future__ import annotations
 
@@ -36,11 +36,6 @@ from .sharded import ShardedIndex
 
 _TOKEN = re.compile(r"^([A-Za-z_]+?)(\d+)?$")
 _PQ = re.compile(r"^pq(\d+)x(\d+)$", re.IGNORECASE)
-
-#: Reducer names of the reference's grammar; only those registered in this
-#: package build (``rae``), the rest parse and wait for ROADMAP.md A item 8.
-_GRAMMAR_REDUCERS = ("isomap", "mds", "pca", "rae", "rp", "umap")
-
 
 @dataclass(frozen=True)
 class IndexSpec:
@@ -90,7 +85,7 @@ def parse_index_spec(spec: str) -> IndexSpec:
     tokens = [t.strip() for t in spec.split(",")]
     if not spec.strip() or any(not t for t in tokens):
         _fail(spec, "empty stage")
-    reducers = sorted(set(_GRAMMAR_REDUCERS) | set(list_reducers()))
+    reducers = list_reducers()
     reducer: Optional[str] = None
     out_dim = 0
     base: Optional[str] = None
@@ -204,16 +199,6 @@ def parse_index_spec(spec: str) -> IndexSpec:
                      hnsw_m=hnsw_m, shards=shards, mutable=mutable)
 
 
-def _not_ported(parsed: IndexSpec) -> Optional[str]:
-    """The ROADMAP.md item that ports the first unported stage, if any."""
-    if parsed.mutable:
-        return "Mut (live mutation): ROADMAP.md queue A item 11"
-    if parsed.reducer is not None and parsed.reducer not in list_reducers():
-        return f"reducer {parsed.reducer.upper()} (baseline reducers): " \
-               f"ROADMAP.md queue A item 8"
-    return None
-
-
 def _make_base(parsed: IndexSpec, metric: str, index_kw: dict[str, Any],
                device: str | torch.device) -> VectorIndex:
     """Map (base, quant) to the index class, as the reference's."""
@@ -257,12 +242,10 @@ def index_factory(spec: str, *, metric: str = "euclidean",
     ``reducer_kw`` is forwarded to the reducer constructor (e.g. RAE's
     ``steps`` / ``seed``); ``index_kw`` to the base index (e.g. IVF's
     ``nprobe``, PQ's ``kmeans_iters``). A sharded stack's children run on
-    a thread pool, quantized children included, as in the reference. Call
-    ``.build(corpus)`` on the result."""
+    a thread pool, quantized children included, as in the reference; a
+    ``Mut`` stack is one :class:`MutableIndex` over the whole stack (its
+    shards are not wrapped). Call ``.build(corpus)`` on the result."""
     parsed = parse_index_spec(spec)
-    missing = _not_ported(parsed)
-    if missing is not None:
-        raise NotImplementedError(f"{spec!r}: stage {missing}")
     if parsed.shards:
         child_spec = str(dataclasses.replace(
             parsed, reducer=None, out_dim=0, shards=0, rerank_factor=1,
@@ -278,4 +261,8 @@ def index_factory(spec: str, *, metric: str = "euclidean",
         stack = TwoStageIndex(reducer, stack,
                               rerank_factor=parsed.rerank_factor,
                               metric=metric, device=device)
+    if parsed.mutable:
+        from .mutable import MutableIndex  # cycle: lazy
+
+        stack = MutableIndex(stack)
     return stack

@@ -29,8 +29,9 @@ CPU index ``"auto"`` follows the reference's rule (q=1 host, q>1 batched).
 Under a rerank the graph declares ``stage1_oversample=2``, as the
 reference does. ``frontier`` is the reference's knob of its host
 frontier driver, which the port does not have; it is kept because the
-fingerprint and the saved ``meta.json`` carry it. ``add`` is not ported
-(``ROADMAP.md`` queue A item 11).
+fingerprint and the saved ``meta.json`` carry it. ``add`` inserts rows
+into the live graph on the host and re-uploads it (the reference's
+``insert_batch``).
 
 **Quantized payloads** (``quant="sq8"`` / ``"pq"``; the factory's
 ``"RAE64,HNSW32,SQ8,Rerank4"``): the graph is built in float32 as usual,
@@ -101,6 +102,8 @@ class HNSWIndex(VectorIndex):
         self.kmeans_iters = kmeans_iters
         self.device = torch.device(device)
         self._g: Optional[hnsw_lib.HNSWGraph] = None
+        #: host seconds of the last ``add``: insert, then re-pack + upload
+        self.add_times: dict[str, float] = {}
 
     @property
     def ntotal(self) -> int:
@@ -159,7 +162,7 @@ class HNSWIndex(VectorIndex):
 
     def _upload(self) -> None:
         """Pack the graph and put it (and its codes) on the device once,
-        at build/load."""
+        at build/load and after an ``add``."""
         self._g.pack().device_arrays(self._g.vecs, self.device)
         if self._g.codec is not None:
             self._g.codec.device_arrays(self.device)
@@ -174,9 +177,25 @@ class HNSWIndex(VectorIndex):
         return bool(self.batched)
 
     def add(self, vecs) -> np.ndarray:
-        raise NotImplementedError("HNSWIndex.add (incremental insert, "
-                                  "hnsw.insert_batch): ROADMAP.md queue A "
-                                  "item 11")
+        """Incremental insert: run HNSW Alg. 1 for each new row against the
+        live graph on the host (:func:`~repro_torch.search.hnsw.
+        insert_batch`, the same code path as ``build``), extend the code
+        payload with the already-trained codec, then re-pack and re-upload
+        the graph (and its codes) so the next search sees the new rows.
+        Returns the new row ids; ``add_times`` holds the host seconds of
+        the insert and of the re-pack + upload."""
+        self._require_built()
+        t0 = time.perf_counter()
+        ids = hnsw_lib.insert_batch(self._g, _numpy(vecs),
+                                    ef_construction=self.ef_construction,
+                                    seed=self.seed, device=self.device)
+        t1 = time.perf_counter()
+        if self.batched is not False or self.quant is not None:
+            self._upload()
+            _sync(self.device)
+        self.add_times = {"insert_s": t1 - t0,
+                          "upload_s": time.perf_counter() - t1}
+        return ids
 
     def set_params(self, params: SearchParams) -> None:
         """Adopt a tuned ``ef_search`` default (fingerprint state)."""
@@ -196,12 +215,11 @@ class HNSWIndex(VectorIndex):
         ef_base = (self.ef_search if params is None or params.ef_search is None
                    else params.ef_search)
         ef = max(ef_base, k_req)
-        al = None if alive is None else np.asarray(_numpy(alive), bool)
         _sync(self.device)
         t0 = time.perf_counter()
         if self._use_batched(nq):
             scores, idx, evals, hops = hnsw_lib.search_batched(
-                self._g, queries, k_req, ef_search=ef, alive=al,
+                self._g, queries, k_req, ef_search=ef, alive=alive,
                 device=self.device)
             scores, idx, evals = _numpy(scores), _numpy(idx), _numpy(evals)
             g = self._g
@@ -216,7 +234,8 @@ class HNSWIndex(VectorIndex):
         else:
             scores, idx, evals = hnsw_lib.search(
                 self._g, np.asarray(_numpy(queries), np.float32), k_req,
-                ef_search=ef, alive=al)
+                ef_search=ef,
+                alive=None if alive is None else _numpy(alive))
             stats = {"distance_evals": float(evals.mean())}
         dt = time.perf_counter() - t0
         return SearchResult(scores=scores, indices=idx, latency_s=dt,

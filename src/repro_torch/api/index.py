@@ -6,8 +6,8 @@ kernel on the card), ``IVFFlatIndex`` the k-means cells + probe scan
 :class:`~repro_torch.api.reducer.Reducer` with a base index: reduced-space
 candidate generation, full-space rerank (the paper's deployment stack).
 The HNSW tier lives in ``api/graph.py``, the sharded tier in
-``api/sharded.py``. The quantized and mutable tiers are not ported yet
-(``ROADMAP.md`` queue A).
+``api/sharded.py``, the quantized tiers in ``api/quantized.py`` and the
+live-mutation wrapper in ``api/mutable.py``.
 
 Indexes keep their vectors on ``device`` (default ``"cuda"``). ``search``
 takes numpy arrays or tensors and returns a :class:`SearchResult` of
@@ -152,6 +152,15 @@ def _load_arrays(directory: str) -> dict[str, np.ndarray]:
 def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
+
+
+def alive_tensor(alive, device: torch.device) -> torch.Tensor:
+    """A tombstone mask as a bool tensor on ``device``: a host mask is
+    uploaded; a tensor already there is used as it is (a mask kept on the
+    card costs no copy a search)."""
+    if isinstance(alive, torch.Tensor):
+        return alive.to(device=device, dtype=torch.bool)
+    return torch.as_tensor(np.asarray(alive, bool), device=device)
 
 
 def _sync(device: torch.device) -> None:
@@ -318,8 +327,7 @@ class FlatIndex(VectorIndex):
         del params  # exact scan has no knobs: every row is always scored
         self._require_built()
         q = as_device_tensor(queries, self.device)
-        al = None if alive is None else torch.as_tensor(
-            np.asarray(_numpy(alive), bool), device=self.device)
+        al = None if alive is None else alive_tensor(alive, self.device)
         return _timed(lambda: ds.search(q, self._db, min(k, self.ntotal),
                                         metric=self.metric, alive=al),
                       self.device,
@@ -470,8 +478,7 @@ class IVFFlatIndex(VectorIndex):
         index = self._ivf
         if alive is not None:
             lists = index.lists
-            al = torch.as_tensor(np.asarray(_numpy(alive), bool),
-                                 device=self.device)
+            al = alive_tensor(alive, self.device)
             mask = index.list_mask & al[torch.where(lists >= 0, lists,
                                                     0).long()]
             index = dataclasses.replace(
@@ -581,13 +588,20 @@ class TwoStageIndex(VectorIndex):
         return self
 
     def add(self, vecs) -> None:
-        """Streaming insert: encode the new rows once, append them to the
-        base and to the full-space rerank store. The reducer is not
-        refit."""
+        """Streaming insert: encode the new rows once and push them down
+        the stack (incrementally when the base has ``add``: HNSW graph
+        insert, IVF cell append, flat concat; else by rebuilding the base
+        over the extended reduced corpus), then extend the full-space
+        rerank store. The reducer is not refit here: drift policy belongs
+        to ``MutableIndex``."""
         self._require_built()
         nv = as_device_tensor(vecs, self.device)
-        self.base.add(self.reducer.transform(nv))
-        self._db_full = torch.cat([self._db_full, nv])
+        full = torch.cat([self._db_full, nv])
+        if hasattr(self.base, "add"):
+            self.base.add(self.reducer.transform(nv))
+        else:
+            self.base.build(self.reducer.transform(full))
+        self._db_full = full
 
     def set_params(self, params: SearchParams) -> None:
         """Adopt a tuned stage-1 budget and forward the rest down the

@@ -37,12 +37,8 @@ from ..search import ivf as ivf_lib
 from ..search import quantize as qz
 from .index import (SearchParams, SearchResult, VectorIndex, _load_arrays,
                     _numpy, _pad_result, _probed_sizes, _save_dir, _timed,
-                    register_index)
+                    alive_tensor, register_index)
 from .reducer import as_device_tensor
-
-
-def _alive_tensor(alive, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(_numpy(alive), bool), device=device)
 
 
 def _drop_tombstones(vals: torch.Tensor, idx: torch.Tensor,
@@ -83,7 +79,7 @@ def _flat_search(index: VectorIndex, queries, k: int, alive,
     stats = {"distance_evals": float(index.ntotal)}
     if alive is None:
         return _timed(lambda: scan(q, k_eff), index.device, stats=stats)
-    al = _alive_tensor(alive, index.device)
+    al = alive_tensor(alive, index.device)
     k_fetch = min(index.ntotal, k_eff + int((~al).sum()))
     return _timed(lambda: _drop_tombstones(*scan(q, k_fetch), al, k_eff),
                   index.device, stats=stats)
@@ -322,7 +318,7 @@ class _IVFQuantBase(VectorIndex):
         if alive is None:
             return self._lists, self._mask
         return _fold_alive_into_lists(self._lists, self._mask,
-                                      _alive_tensor(alive, self.device))
+                                      alive_tensor(alive, self.device))
 
     def _search(self, queries, k: int, alive, params, scan) -> SearchResult:
         """Run ``scan(q, lists, mask, k_eff, nprobe)`` and pad to k."""

@@ -1,13 +1,16 @@
 """``Reducer``: one fit/transform/save/load interface for every DR method.
 
-Only the paper's RAE is ported so far; the baselines (PCA, RP, MDS, Isomap,
-UMAP) wait for ``ROADMAP.md`` queue A item 8.
+The paper's RAE (``core.trainer`` + ``core.rae``) and the five Table 1
+baselines (``core.baselines``: PCA, RP, MDS, Isomap, UMAP) share one
+protocol and one string registry, so the index factory never special-cases
+the method. ``transform`` returns a float32 tensor on the reducer's
+``device``.
 
 Persistence layout (one directory per reducer), the reference's own, so a
 directory either package saved loads in the other::
 
-    <dir>/meta.json     # {"kind": ..., "config": json-able fields}
-    <dir>/arrays.npz    # fitted numpy state (weights)
+    <dir>/meta.json     # {"kind": ..., "config" (RAE) or "state" (baselines)}
+    <dir>/arrays.npz    # fitted numpy state (weights, train embeddings, ...)
 
 ``load_reducer(dir)`` dispatches on ``meta.json["kind"]``.
 """
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from ..configs import RAEConfig
-from ..core import trainer
+from ..core import baselines, trainer
 from ..kernels.rae_encode import rae_encode
 
 _META = "meta.json"
@@ -100,6 +103,121 @@ def as_device_tensor(x, device: str | torch.device) -> torch.Tensor:
     """float32 tensor on ``device`` from a numpy array or a tensor (no copy
     when it already is one)."""
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Baseline adapters
+# ---------------------------------------------------------------------------
+class _BaselineReducer:
+    """Adapter over a ``core.baselines`` dataclass. Fitted state lives in the
+    wrapped dataclass; persistence splits its fields into json scalars and
+    npz arrays generically (the reference's split), so every baseline
+    round-trips with no per-class code and either package loads the other's
+    directory with the same fingerprint."""
+
+    _impl_cls: type
+
+    def __init__(self, out_dim: int, device: str | torch.device = "cuda",
+                 **kw):
+        self._impl = self._impl_cls(out_dim=out_dim, **kw)
+        self._fitted = False
+        self.device = torch.device(device)
+
+    @property
+    def out_dim(self) -> int:
+        return self._impl.out_dim
+
+    @property
+    def fitted(self) -> bool:
+        return self._fitted
+
+    def _fit_impl(self, train_x: np.ndarray) -> None:
+        self._impl.fit(train_x)
+
+    def fit(self, train_x) -> "_BaselineReducer":
+        if isinstance(train_x, torch.Tensor):
+            train_x = train_x.detach().cpu().numpy()
+        self._fit_impl(np.asarray(train_x, np.float32))
+        self._fitted = True
+        return self
+
+    def transform(self, x) -> torch.Tensor:
+        if not self._fitted:
+            raise RuntimeError(f"{self.kind}: transform before fit")
+        return self._impl.transform(as_device_tensor(x, self.device))
+
+    def fingerprint(self) -> str:
+        """Content hash of the fitted map: every field of the wrapped
+        dataclass with the same scalar/array split ``save`` uses (the
+        reference's bytes)."""
+        if not self._fitted:
+            raise RuntimeError(f"{self.kind}: fingerprint before fit")
+        h = hashlib.sha1(self.kind.encode())
+        for f in dataclasses.fields(self._impl):
+            v = getattr(self._impl, f.name)
+            h.update(f.name.encode())
+            if v is None or isinstance(v, (bool, int, float, str)):
+                h.update(str(v).encode())
+            else:
+                a = np.asarray(v)
+                h.update(f"{a.shape}:{a.dtype}".encode())
+                h.update(a.tobytes())
+        return h.hexdigest()[:16]
+
+    def save(self, directory: str) -> None:
+        scalars: dict[str, Any] = {}
+        arrays: dict[str, np.ndarray] = {}
+        for f in dataclasses.fields(self._impl):
+            v = getattr(self._impl, f.name)
+            if v is None or isinstance(v, (bool, int, float, str)):
+                scalars[f.name] = v
+            else:
+                arrays[f.name] = np.asarray(v)
+        _save_meta(directory, {"kind": self.kind, "state": scalars,
+                               "fitted": self._fitted})
+        np.savez(os.path.join(directory, _ARRAYS), **arrays)
+
+    @classmethod
+    def _load(cls, directory: str, meta: dict[str, Any],
+              device: str | torch.device):
+        self = cls.__new__(cls)
+        state = dict(meta["state"])
+        with np.load(os.path.join(directory, _ARRAYS)) as z:
+            state.update({k: z[k] for k in z.files})
+        self._impl = cls._impl_cls(**state)
+        self._fitted = bool(meta.get("fitted", True))
+        self.device = torch.device(device)
+        return self
+
+
+@register_reducer("pca")
+class PCAReducer(_BaselineReducer):
+    _impl_cls = baselines.PCA
+
+
+@register_reducer("rp")
+class GaussianRPReducer(_BaselineReducer):
+    _impl_cls = baselines.GaussianRP
+
+
+@register_reducer("mds")
+class MDSLinearReducer(_BaselineReducer):
+    _impl_cls = baselines.MDSLinear
+
+
+@register_reducer("isomap")
+class IsomapReducer(_BaselineReducer):
+    """Its geodesics' min-plus squaring runs on the reducer's device."""
+
+    _impl_cls = baselines.Isomap
+
+    def _fit_impl(self, train_x: np.ndarray) -> None:
+        self._impl.fit(train_x, device=self.device)
+
+
+@register_reducer("umap")
+class UMAPLiteReducer(_BaselineReducer):
+    _impl_cls = baselines.UMAPLite
 
 
 # ---------------------------------------------------------------------------

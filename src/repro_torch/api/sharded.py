@@ -39,7 +39,8 @@ from ..distributed.partitioning import partition_ivf_cells, partition_rows
 from ..kernels.common import PAD_ID
 from ..kernels.topk_merge import topk_merge
 from .index import (SearchResult, VectorIndex, _load_arrays, _numpy,
-                    _save_dir, _sync, load_index, register_index)
+                    _save_dir, _sync, alive_tensor, load_index,
+                    register_index)
 from .reducer import as_device_tensor
 
 
@@ -73,6 +74,7 @@ class ShardedIndex(VectorIndex):
         self.device = torch.device(device)
         self._shards: list[VectorIndex] = []
         self._row_maps: list[np.ndarray] = []
+        self._row_maps_dev: list[torch.Tensor] = []  # derived, on device
         self._ntotal = 0
         self._dim = 0
         #: host seconds of the last build: partition, then each child
@@ -169,8 +171,14 @@ class ShardedIndex(VectorIndex):
             times["children_s"].append(time.perf_counter() - t0)
         self._ntotal = n
         self._dim = int(corpus.shape[1])
+        self._upload_row_maps()
         self.build_times = times
         return self
+
+    def _upload_row_maps(self) -> None:
+        self._row_maps_dev = [torch.as_tensor(r, dtype=torch.long,
+                                              device=self.device)
+                              for r in self._row_maps]
 
     # -- search ------------------------------------------------------------
     @functools.cached_property
@@ -191,10 +199,10 @@ class ShardedIndex(VectorIndex):
         """Every child's local top-``k_req`` (clamped to its size), on the
         thread pool when there is more than one child."""
         q = as_device_tensor(queries, self.device)
-        # tombstones slice per shard through the row map
-        al = None if alive is None else np.asarray(_numpy(alive), bool)
+        # tombstones slice per shard through the row maps, on the device
+        al = None if alive is None else alive_tensor(alive, self.device)
         child_alive = [None if al is None else al[rows]
-                       for rows in self._row_maps]
+                       for rows in self._row_maps_dev]
         if len(self._shards) == 1:
             child = self._shards[0]
             return [child.search(q, min(k_req, child.ntotal),
@@ -278,4 +286,5 @@ class ShardedIndex(VectorIndex):
                         for i in range(n_built)]
         self._ntotal = int(meta["ntotal"])
         self._dim = int(meta["dim"])
+        self._upload_row_maps()
         return self

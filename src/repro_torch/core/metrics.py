@@ -1,10 +1,15 @@
 """k-NN preservation metrics (paper Section 3.1, Definitions 1-2).
 
+P_overall (Eq. 4) = (1/kN) sum_a |N_k^X(a) ∩ N_k^X'(a)|: the fraction of
+original k-nearest neighbors retained after dimensionality reduction.
+
 Plain PyTorch: exact ground truth for the port's checks, not a search path.
 Ties in a top-k go to the lower index, as ``lax.top_k`` in the reference
 does (``torch.topk`` does not promise it), through a stable sort.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -54,3 +59,20 @@ def recall_at_k(pred_idx: torch.Tensor, true_idx: torch.Tensor) -> float:
     """Retrieval recall: fraction of true top-k found in predicted top-k."""
     return float(set_overlap(torch.as_tensor(true_idx),
                              torch.as_tensor(pred_idx)))
+
+
+def preservation_accuracy(x_orig, x_red, k: int = 5,
+                          metric: str = "euclidean",
+                          metric_reduced: Optional[str] = None,
+                          chunk: int = 256) -> float:
+    """P_overall (Eq. 4): mean fraction of original k-NN retained in the
+    reduced space. The same collection serves as anchors and database,
+    self excluded (the paper's protocol). Runs on ``x_orig``'s device
+    (numpy inputs: the CPU), chunked over anchors."""
+    x_orig = torch.as_tensor(x_orig)
+    x_red = torch.as_tensor(x_red, device=x_orig.device)
+    mr = metric_reduced or metric
+    idx_o = knn_indices(x_orig, x_orig, k, metric, exclude_self=True,
+                        chunk=chunk)
+    idx_r = knn_indices(x_red, x_red, k, mr, exclude_self=True, chunk=chunk)
+    return float(set_overlap(idx_o, idx_r))

@@ -31,7 +31,34 @@ def embedding_corpus(
     seed: int = 0,
 ) -> np.ndarray:
     """[n, dim] float32 embeddings: mixture of rotated low-rank Gaussians."""
+    return _mixture(n, 0, dim, n_clusters, intrinsic, spectrum_decay, noise,
+                    normalize, seed)[0]
+
+
+def embedding_corpus_with_holdout(
+    n: int,
+    holdout: int,
+    dim: int,
+    n_clusters: int = 8,
+    intrinsic: Optional[int] = None,
+    spectrum_decay: float = 0.7,
+    noise: float = 0.02,
+    normalize: bool = False,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """``embedding_corpus(n, ...)`` byte for byte, and ``holdout`` rows more
+    of the same mixture (the same shared basis, cluster bases and centres)
+    drawn from a generator of their own (seeded ``seed + 1``): rows of the
+    corpus' distribution that the corpus does not hold. A cluster the
+    corpus drew empty gives no held-out rows, so there may be fewer."""
+    return _mixture(n, holdout, dim, n_clusters, intrinsic, spectrum_decay,
+                    noise, normalize, seed)
+
+
+def _mixture(n, holdout, dim, n_clusters, intrinsic, spectrum_decay, noise,
+             normalize, seed) -> tuple[np.ndarray, np.ndarray]:
     rng = np.random.default_rng(seed)
+    hrng = np.random.default_rng(seed + 1)
     r = intrinsic or max(dim // 4, 8)
     # One dominant anisotropic spectrum shared across the corpus; clusters
     # are centers within the dominant subspace plus small per-cluster basis
@@ -39,8 +66,10 @@ def embedding_corpus(
     spec = (np.arange(1, r + 1, dtype=np.float32) ** (-spectrum_decay))
     shared, _ = np.linalg.qr(rng.normal(size=(dim, r)).astype(np.float32))
     out = np.empty((n, dim), np.float32)
+    held = np.empty((holdout, dim), np.float32)
     sizes = rng.multinomial(n, np.ones(n_clusters) / n_clusters)
-    start = 0
+    held_sizes = hrng.multinomial(holdout, np.ones(n_clusters) / n_clusters)
+    start = held_start = 0
     for c, sz in enumerate(sizes):
         if sz == 0:
             continue
@@ -52,21 +81,39 @@ def embedding_corpus(
         cz[: max(r // 2, 1)] = rng.normal(
             scale=1.5, size=max(r // 2, 1)) * spec[: max(r // 2, 1)]
         center = shared @ cz
-        z = rng.normal(size=(sz, r)).astype(np.float32) * spec[None, :]
-        x = z @ basis.T + center[None, :]
-        x += rng.normal(scale=noise, size=x.shape).astype(np.float32)
-        out[start:start + sz] = x
+        for g, m, at, dst in ((rng, sz, start, out),
+                              (hrng, held_sizes[c], held_start, held)):
+            z = g.normal(size=(m, r)).astype(np.float32) * spec[None, :]
+            x = z @ basis.T + center[None, :]
+            x += g.normal(scale=noise, size=x.shape).astype(np.float32)
+            dst[at:at + m] = x
         start += sz
+        held_start += held_sizes[c]
     rng.shuffle(out)
+    held = held[:held_start]   # a cluster the corpus drew empty holds none
+    hrng.shuffle(held)
     if normalize:
         out /= np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-12)
-    return out
+        held /= np.maximum(np.linalg.norm(held, axis=1, keepdims=True),
+                           1e-12)
+    return out, held
 
 
 def paper_dataset(name: str, n: int, seed: int = 0, **overrides) -> np.ndarray:
     kw = dict(PAPER_DATASETS[name])
     kw.update(overrides)
     return embedding_corpus(n=n, seed=seed, **kw)
+
+
+def paper_dataset_with_holdout(name: str, n: int, holdout: int,
+                               seed: int = 0, **overrides
+                               ) -> tuple[np.ndarray, np.ndarray]:
+    """``paper_dataset(name, n, seed)`` and ``holdout`` further rows of the
+    same mixture (:func:`embedding_corpus_with_holdout`)."""
+    kw = dict(PAPER_DATASETS[name])
+    kw.update(overrides)
+    return embedding_corpus_with_holdout(n=n, holdout=holdout, seed=seed,
+                                         **kw)
 
 
 def train_test_split(x: np.ndarray, test_frac: float = 0.1, seed: int = 0

@@ -3,8 +3,9 @@
 The port of the reference's ``search/hnsw.py``. Two halves:
 
 * **Host side, numpy, line for line.** Level sampling, the sequential
-  heuristic insert (:func:`build`), :func:`reassign_entry` and the
-  sequential heapq :func:`search`. The arithmetic is the reference's, op
+  heuristic insert (:func:`build`), the incremental insert
+  (:func:`insert_batch`), :func:`reassign_entry` and the sequential heapq
+  :func:`search`. The arithmetic is the reference's, op
   for op, so from the same corpus and seed the graph comes out bitwise
   equal (``levels``, ``links0``, ``links``, ``entry``). The graph is built
   on the host: a build on the device is a feature the reference lacks.
@@ -25,8 +26,7 @@ The port of the reference's ``search/hnsw.py``. Two halves:
 Not ported here: the reference's ``impl="fused"`` route of
 ``candidate_distances`` through ``l2_topk`` (one launch and one sync per
 hop of about a hundred candidates, chosen from JAX's backend), its host
-frontier-E driver (``_search_batched_np``) and ``insert_batch``;
-``ROADMAP.md`` lists them.
+frontier-E driver (``_search_batched_np``); ``ROADMAP.md`` lists them.
 """
 from __future__ import annotations
 
@@ -449,6 +449,85 @@ def build(corpus, M: int = 32, ef_construction: int = 100,
                      entry=entry, M=M)
 
 
+def insert_batch(graph: HNSWGraph, new_vecs, ef_construction: int = 100,
+                 seed: int = 0, device: str | torch.device = "cuda"
+                 ) -> np.ndarray:
+    """Incremental insert: append ``new_vecs`` rows to a built graph with
+    the same per-node machinery as :func:`build` (greedy descent, beam,
+    heuristic selection, bidirectional overflow re-pruning), in place, on
+    the host: the reference's code line for line, so the same stream of
+    insert batches gives the reference's graph bit for bit.
+
+    Levels for the new nodes are drawn keyed on ``(seed, current size)``;
+    new upper layers are allocated when a new node out-draws the current
+    top. The packed traversal cache is nulled (the :meth:`HNSWGraph.pack`
+    contract): callers re-pack and re-upload before the next batched
+    search. A :class:`GraphCodes` payload, when attached, is extended with
+    codes for the new rows from the already-trained codec, encoded on
+    ``device`` (no retrain). Returns the global ids of the inserted rows.
+    """
+    if isinstance(new_vecs, torch.Tensor):
+        new_vecs = new_vecs.detach().cpu().numpy()
+    nv = np.ascontiguousarray(np.asarray(new_vecs, np.float32))
+    b = nv.shape[0]
+    if nv.ndim != 2 or (b and nv.shape[1] != graph.vecs.shape[1]):
+        raise ValueError(f"insert_batch: expected [b, {graph.vecs.shape[1]}]"
+                         f" vectors, got {nv.shape}")
+    if b == 0:
+        return np.zeros(0, np.int64)
+    n0 = graph.ntotal
+    M, m0 = graph.M, 2 * graph.M
+    new_levels = sample_levels(b, M, seed + n0)
+    vecs = np.ascontiguousarray(np.concatenate([graph.vecs, nv], axis=0))
+    levels = np.concatenate([graph.levels, new_levels])
+    top_old = graph.links.shape[0]
+    top = max(top_old, int(new_levels.max()))
+    links0 = np.concatenate(
+        [graph.links0, np.full((b, m0), -1, np.int32)], axis=0)
+    links = np.full((top, n0 + b, M), -1, np.int32)
+    if top_old:
+        links[:top_old, :n0] = graph.links
+    visited = np.full(n0 + b, -1, np.int64)
+    evals = _Evals()
+    entry = graph.entry
+    for i in range(n0, n0 + b):
+        entry = _insert_node(vecs, levels, links0, links, M, m0, top, i,
+                             entry, ef_construction, visited, evals)
+    _repair_connectivity(vecs, links0, entry, evals)
+    _compact_pads(links0, links)
+    graph.vecs = vecs
+    graph.levels = levels
+    graph.links0 = links0
+    graph.links = links
+    graph.entry = entry
+    graph.packed = None  # pack() contract: a mutated graph re-packs
+    if graph.codec is not None:
+        _extend_codec(graph.codec, nv, device)
+    return np.arange(n0, n0 + b, dtype=np.int64)
+
+
+def _extend_codec(cdx: GraphCodes, new_vecs: np.ndarray,
+                  device: str | torch.device = "cuda") -> None:
+    """Encode ``new_vecs`` with the codec's already-trained state on
+    ``device`` and append the code rows (and biases) in place; drops the
+    device cache."""
+    v = torch.as_tensor(np.asarray(new_vecs, np.float32), device=device)
+    if cdx.kind == "sq8":
+        sq = qz.ScalarQuantizer(vmin=torch.as_tensor(cdx.vmin, device=device),
+                                step=torch.as_tensor(cdx.step, device=device))
+        codes = qz.sq8_encode(sq, v)
+        nb = qz.sq8_recon_sq_norms(sq, codes).cpu().numpy().astype(np.float32)
+    else:
+        pq = qz.ProductQuantizer(
+            codebooks=torch.as_tensor(cdx.codebooks, device=device))
+        codes = qz.pq_encode(pq, v)
+        nb = np.zeros(v.shape[0], np.float32)
+    cdx.codes = np.ascontiguousarray(
+        np.concatenate([cdx.codes, codes.cpu().numpy()], axis=0))
+    cdx.node_bias = np.concatenate([cdx.node_bias, nb])
+    cdx._dev = {}
+
+
 def reassign_entry(graph: HNSWGraph, alive: np.ndarray) -> int:
     """Point ``graph.entry`` at the highest-level alive node (ties to the
     lowest id). Returns the new entry id; raises if nothing is alive."""
@@ -533,8 +612,8 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
     padding; evals count as the reference counts them (the seed 1, the
     descent its valid neighbors of active rows, layer 0 its fresh ones);
     ``hops`` is the number of layer-0 hops. ``alive`` (bool [N])
-    tombstones nodes: a dead node never enters a beam; the entry must be
-    alive."""
+    tombstones nodes (numpy, or a tensor, used where it lies): a dead node
+    never enters a beam; the entry must be alive."""
     dev = torch.device(device)
     q = torch.as_tensor(queries, dtype=torch.float32,
                         device=dev).contiguous()
@@ -545,11 +624,14 @@ def search_batched(graph: HNSWGraph, queries, k: int, ef_search: int = 64,
                 torch.zeros(0, dtype=torch.int64, device=dev), 0)
     mask = None
     if alive is not None:
-        alive = np.asarray(alive, bool)
-        if not alive[graph.entry]:
+        # a tensor stays where it is (a mask kept on the card is not
+        # uploaded again); the entry check reads one element
+        mask = torch.as_tensor(
+            alive if isinstance(alive, torch.Tensor)
+            else np.asarray(alive, bool), dtype=torch.bool, device=dev)
+        if not bool(mask[graph.entry]):
             raise ValueError("search_batched: graph.entry is tombstoned — "
                              "call reassign_entry() after deleting it")
-        mask = torch.as_tensor(alive, device=dev)
     ef = max(ef_search, k)
     vecs, vecs_sq, nbrs0, upper = graph.pack().device_arrays(graph.vecs, dev)
     n = vecs.shape[0]

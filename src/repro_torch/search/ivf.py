@@ -21,10 +21,13 @@ Differences from the reference, each kept out of the answers:
 * The list vectors' squared norms are computed once per list (``list_sq``)
   instead of on every gathered slab.
 
-Tie orders are the reference's: the probed cells are the stable descending
-order of ``-d2c`` (ties to the lower cell, as ``lax.top_k``), and the
-candidates the stable descending order of the flattened ``[P * cap]`` slab
-(ties to the lower slab position: probe rank, then slot).
+Tie orders: the probed cells are the stable descending order of ``-d2c``
+(ties to the lower cell, as ``lax.top_k``). The candidates are ranked by
+(score descending, corpus id ascending) over the flattened ``[P * cap]``
+slab (:func:`topk_by_score_then_id`), the North Star contract. The
+reference ranks equal scores by slab position (probe rank, then slot), so
+a re-laid list renames tied ids; the port does not copy that
+(``ROADMAP.md`` C8). Scores are the reference's; only tied ids differ.
 """
 from __future__ import annotations
 
@@ -53,6 +56,23 @@ class IVFIndex:
     def __post_init__(self):
         if self.list_sq is None:
             self.list_sq = torch.sum(self.list_vecs * self.list_vecs, -1)
+
+
+def topk_by_score_then_id(s: torch.Tensor, ids: torch.Tensor, k: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best entries of each row of ``s`` ``[q, L]`` (float32) under
+    (score descending, id ascending), with their ids from ``ids`` ``[q, L]``
+    (int, -1 allowed): one ``int64`` key a slot, the score's bits mapped to
+    an order-preserving integer in the high 32 bits (``-0.0`` as ``+0.0``)
+    and ``2^31 - 1 - id`` in the low 32, selected in one ``topk``. Slots
+    with equal keys hold equal (score, id) pairs, so the answer is
+    unique."""
+    bits = (s.float() + 0.0).contiguous().view(torch.int32)
+    ordered = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    key = (ordered.to(torch.int64) << 32) | (0x7FFFFFFF
+                                             - ids.to(torch.int64))
+    top = torch.topk(key, k, dim=1).indices
+    return torch.gather(s, 1, top), torch.gather(ids, 1, top)
 
 
 def _sq_dists(x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
@@ -150,11 +170,10 @@ def search(index: IVFIndex, queries: torch.Tensor, k: int, nprobe: int = 8
               - torch.sum(qc * qc, -1)[:, None, None])
         del vecs
         sc = torch.where(mask[cc], sc, torch.full_like(sc, float("-inf")))
-        flat = sc.reshape(sc.shape[0], -1)
-        top = torch.sort(flat, dim=1, descending=True,
-                         stable=True).indices[:, :k]
-        out_v.append(torch.gather(flat, 1, top))
-        out_i.append(torch.gather(lists[cc].reshape(sc.shape[0], -1), 1, top))
+        v, i = topk_by_score_then_id(sc.reshape(sc.shape[0], -1),
+                                     lists[cc].reshape(sc.shape[0], -1), k)
+        out_v.append(v)
+        out_i.append(i)
     if not out_v:
         return (torch.empty((0, k), device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))

@@ -29,9 +29,12 @@ Differences from the reference, each kept out of the answers:
   torch cannot reproduce ``jax.random.choice``. ``init=`` takes the m row
   draws explicitly (the parity tests pass the reference's).
 * The scans run in chunks (corpus rows for :func:`sq8_scan`, queries under
-  :data:`~repro_torch.search.ivf.SLAB_BYTES` for the IVF probes) and pick
-  their top-k by a stable descending sort, which keeps ``lax.top_k``'s
-  lower-index ties. Rows are independent, so chunking changes no answer.
+  :data:`~repro_torch.search.ivf.SLAB_BYTES` for the IVF probes). The flat
+  scans pick their top-k by a stable descending sort, which keeps
+  ``lax.top_k``'s lower-index ties; the IVF probes rank by (score
+  descending, corpus id ascending), where the reference ranks ties by slab
+  position (``ROADMAP.md`` C8). Rows are independent, so chunking changes
+  no answer.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from ..kernels.graph_beam.ref import pairwise_sum
-from .ivf import SLAB_BYTES, kmeans
+from .ivf import SLAB_BYTES, kmeans, topk_by_score_then_id
 
 #: Most bytes of float scores or decoded codes one flat-scan chunk holds.
 SCAN_BYTES = 1 << 30
@@ -94,7 +97,10 @@ def sq8_train(x: torch.Tensor) -> ScalarQuantizer:
     x = x.float()
     vmin = torch.amin(x, dim=0)
     vmax = torch.amax(x, dim=0)
-    step = torch.clamp((vmax - vmin) / 255.0, min=1e-12)
+    # a tensor divisor: on the card, division by a host scalar multiplies
+    # by its rounded reciprocal, an ulp off the reference's quotient
+    step = torch.clamp((vmax - vmin) / torch.full_like(vmin, 255.0),
+                       min=1e-12)
     return ScalarQuantizer(vmin=vmin, step=step)
 
 
@@ -148,10 +154,10 @@ def _probe_cells(q: torch.Tensor, centroids: torch.Tensor, nprobe: int
 
 def _probe_topk(s: torch.Tensor, ids: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of the flattened ``[q, P * cap]`` slab; -inf slots get id -1."""
-    flat = s.reshape(s.shape[0], -1)
-    v, top = _topk_stable(flat, k)
-    idx = torch.gather(ids.reshape(s.shape[0], -1), 1, top)
+    """Top-k of the flattened ``[q, P * cap]`` slab by (score descending,
+    id ascending); -inf slots get id -1."""
+    v, idx = topk_by_score_then_id(s.reshape(s.shape[0], -1),
+                                   ids.reshape(s.shape[0], -1), k)
     return v, torch.where(torch.isfinite(v), idx, torch.full_like(idx, -1))
 
 

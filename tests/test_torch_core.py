@@ -62,11 +62,43 @@ def test_embedding_corpus_bit_equal(kw):
                                   jax_synthetic.embedding_corpus(**kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(n=500, dim=48, n_clusters=5, intrinsic=12, seed=3),
+    dict(n=300, dim=16, normalize=True, seed=1),
+    dict(n=3, dim=16, n_clusters=8, seed=0),      # clusters drawn empty
+])
+def test_embedding_corpus_with_holdout_keeps_the_corpus(kw):
+    """The corpus is the reference's draw byte for byte; the held-out rows
+    are other rows of the same mixture (each nearer the corpus' clusters
+    than a draw of another seed's mixture is)."""
+    x, held = synthetic.embedding_corpus_with_holdout(holdout=200, **kw)
+    np.testing.assert_array_equal(x, jax_synthetic.embedding_corpus(**kw))
+    sizes = np.random.default_rng(kw["seed"]).multinomial(
+        kw["n"], np.ones(kw.get("n_clusters", 8)) / kw.get("n_clusters", 8))
+    full = sizes.min() > 0
+    assert held.dtype == np.float32 and np.isfinite(held).all()
+    assert (held.shape[0] == 200) if full else (held.shape[0] <= 200)
+    assert held.shape[1] == kw["dim"]
+    assert not (held[:, None, :] == x[None, :, :]).all(-1).any()
+    if full:
+        other = synthetic.embedding_corpus(**dict(kw, seed=kw["seed"] + 7))
+
+        def nearest(a):
+            d = ((a[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+            return np.sqrt(d.min(1)).mean()
+
+        assert nearest(held) < nearest(other[:200])
+
+
 def test_paper_dataset_and_split_bit_equal():
     assert synthetic.PAPER_DATASETS == jax_synthetic.PAPER_DATASETS
     a = synthetic.paper_dataset("imdb_like", 400, seed=4)
     np.testing.assert_array_equal(
         a, jax_synthetic.paper_dataset("imdb_like", 400, seed=4))
+    b, held = synthetic.paper_dataset_with_holdout("imdb_like", 400, 50,
+                                                   seed=4)
+    np.testing.assert_array_equal(a, b)
+    assert held.shape == (50, 768)
     for x, y in zip(synthetic.train_test_split(a, seed=1),
                     jax_synthetic.train_test_split(a, seed=1)):
         np.testing.assert_array_equal(x, y)

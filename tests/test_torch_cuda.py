@@ -1193,3 +1193,148 @@ def test_llama_decode_on_card_answers_like_the_cpu():
         _close(lg.cpu(), lg_cpu)
     assert flash_decode_cuda.launches == before + 4 * cfg.n_layers
     assert int(st.length) == 24
+
+
+# ---------------------------------------------------------------------------
+# the Table 1 baselines, the IVF probe's tie order and live mutation
+# ---------------------------------------------------------------------------
+@needs_card
+@pytest.mark.parametrize("name", ["pca", "rp", "mds", "isomap", "umap"])
+def test_baseline_reducer_on_card_answers_like_the_cpu(name):
+    """A baseline fitted on the card equals the CPU's fit (host numpy, and
+    Isomap's min-plus geodesics bit-equal on both devices); its transform
+    through the ``rae_encode`` kernel is within TOL of the CPU's plain
+    version. UMAP's kNN average is plain torch on both devices, its
+    float32 distances rounded otherwise on the card: a row whose k-th and
+    (k+1)-th train rows lie closer than the two devices' rounding bound
+    may average either set, and is held to one of them; every other row
+    to the CPU's answer."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(700, 48)).astype(np.float32)
+    kw = {"max_train": 300} if name in ("mds", "isomap", "umap") else {}
+    if name == "umap":
+        kw["n_epochs"] = 10
+    cpu = api.make_reducer(name, 16, device="cpu", **kw).fit(x[:500])
+    card = api.make_reducer(name, 16, device="cuda", **kw).fit(x[:500])
+    assert card.fingerprint() == cpu.fingerprint()
+    want = cpu.transform(x[500:])            # rows the fits never saw
+    before = rae_encode_cuda.launches
+    got = card.transform(x[500:])
+    assert got.device.type == "cuda"
+    assert rae_encode_cuda.launches - before == (0 if name == "umap" else 1)
+    scale = max(1.0, float(want.abs().max()))
+    err = (got.cpu() - want).abs().max(dim=1).values.numpy()
+    if name != "umap":
+        assert (err <= TOL * scale).all(), err.max()
+        return
+    um = card._impl
+    q, t = x[500:].astype(np.float64), um.train_x_.astype(np.float64)
+    k = um.n_neighbors
+    sq, st = (q * q).sum(1)[:, None], (t * t).sum(1)[None, :]
+    d = np.sqrt(np.maximum(sq - 2 * q @ t.T + st, 0))
+    order = np.argsort(d, axis=1, kind="stable")
+    rows = np.arange(len(q))
+    gap = d[rows, order[:, k]] - d[rows, order[:, k - 1]]
+    # each device's float32 d^2 errs by at most (48 + 2) ulps of the sum of
+    # |terms|, so its d by that over 2d; a swap needs both ends to move
+    err_d2 = 50 * 2.0 ** -24 * (sq + 2 * np.sqrt(sq * st) + st)
+    err_d = err_d2 / (2 * np.maximum(d, 1e-6))
+    bound = 2 * (err_d[rows, order[:, k]] + err_d[rows, order[:, k - 1]])
+    near = gap <= bound
+    far_bad = np.flatnonzero(~near & (err > TOL * scale))
+    assert far_bad.size == 0, [(int(r), float(gap[r]), float(bound[r]),
+                                float(err[r])) for r in far_bad]
+    emb = um.embedding_.astype(np.float64)
+    for r in np.flatnonzero(near):
+        sets = [order[r, :k],
+                np.append(order[r, :k - 1], order[r, k])]
+        outs = []
+        for nb in sets:
+            w = 1.0 / np.maximum(d[r, nb], 1e-6)
+            outs.append((w / w.sum()) @ emb[nb])
+        dev = [np.abs(got[r].cpu().numpy() - o).max() for o in outs]
+        assert min(dev) <= TOL * scale, (int(r), float(gap[r]), dev)
+
+
+@needs_card
+def test_isomap_geodesics_on_card_bit_equal_to_cpu():
+    from repro_torch.core import baselines
+
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(400, 24)).astype(np.float32)
+    x[200:] += 50.0                            # two components
+    g = baselines.Isomap(8, n_neighbors=6).knn_graph(x)
+    card = baselines.geodesics(g, "cuda")
+    assert np.array_equal(card, baselines.geodesics(g, "cpu"))
+    assert np.isinf(card).any()
+
+
+@needs_card
+def test_ivf_probe_tie_order_on_card_equals_the_cpu():
+    from repro_torch.search import ivf as ivf_lib
+
+    rng = np.random.default_rng(5)
+    s = torch.from_numpy(rng.integers(-4, 4, (33, 3000)).astype(np.float32))
+    s[:, ::7] = float("-inf")
+    s[0, 5] = -0.0
+    ids = torch.from_numpy(rng.permutation(3000 * 33).reshape(33, 3000)
+                           .astype(np.int32) - 1)
+    for k in (1, 40, 2048):
+        cv, ci = ivf_lib.topk_by_score_then_id(s, ids, k)
+        gv, gi = ivf_lib.topk_by_score_then_id(s.cuda(), ids.cuda(), k)
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gv.cpu(), cv)
+
+
+def _uploads(monkeypatch):
+    calls = {"n": 0}
+    for name in ("as_tensor", "tensor", "from_numpy"):
+        orig = getattr(torch, name)
+
+        def wrapped(data, *a, _orig=orig, **kw):
+            if not isinstance(data, torch.Tensor):
+                calls["n"] += 1
+            return _orig(data, *a, **kw)
+
+        monkeypatch.setattr(torch, name, wrapped)
+    return calls
+
+
+@needs_card
+@pytest.mark.parametrize("spec", ["Mut,Flat", "Mut,IVF16", "Mut,HNSW8",
+                                  "Mut,Shard2,Flat", "Mut,HNSW8,SQ8",
+                                  "Mut,RAE8,Flat,Rerank2"])
+def test_mutable_stack_on_card_answers_like_the_cpu(spec, monkeypatch):
+    """The same adds and deletes on the card and on the CPU: the same
+    answers on an integer corpus (the masked kernels against the plain
+    versions), no tombstone surfacing, and a masked search uploading no
+    more host arrays than a clean one."""
+    rng = np.random.default_rng(6)
+    x = rng.integers(-8, 8, (300, 16)).astype(np.float32)
+    new = rng.integers(-8, 8, (12, 16)).astype(np.float32)
+    kw = dict(index_kw={"ef_construction": 40} if "HNSW" in spec else None,
+              reducer_kw={"steps": 30} if "RAE" in spec else None)
+    stacks = {}
+    for dev in ("cpu", "cuda"):
+        ix = api.index_factory(spec, device=dev, **kw).build(x)
+        if "RAE" in spec and dev == "cuda":
+            # one fit for both devices: the trainers sum in other orders
+            ix._inner.reducer.params_ = {
+                k: v.cuda() for k, v in
+                stacks["cpu"]._inner.reducer.params_.items()}
+            ix.build(x)
+        ix.add(new)
+        ix.delete([3, 4, 301, 150])
+        stacks[dev] = ix
+    q = np.concatenate([x[:8], new[:4]])
+    cpu, card = stacks["cpu"].search(q, 10), stacks["cuda"].search(q, 10)
+    assert not np.isin(card.indices, [3, 4, 301, 150]).any()
+    if spec not in ("Mut,IVF16", "Mut,RAE8,Flat,Rerank2"):
+        # k-means and the encoder round in other orders on the card
+        np.testing.assert_array_equal(card.indices, cpu.indices)
+        np.testing.assert_array_equal(card.scores, cpu.scores)
+    clean = api.index_factory(spec, device="cuda", **kw).build(x)
+    calls = _uploads(monkeypatch)
+    clean.search(q, 10)
+    n_clean, calls["n"] = calls["n"], 0
+    stacks["cuda"].search(q, 10)
+    assert calls["n"] <= n_clean

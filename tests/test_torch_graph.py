@@ -444,8 +444,15 @@ def test_factory_builds_hnsw_stack_on_cpu(corpus, queries):
     ("Mut,RAE64,IVF256,Rerank4", "item 11"),
 ])
 def test_factory_names_the_roadmap_item_of_unported_stages(spec, item):
-    with pytest.raises(NotImplementedError, match=item):
-        api.index_factory(spec, device="cpu")
+    """The ``Mut`` stage (``ROADMAP.md`` queue A item 11, once refused)
+    wraps the stack the reference's factory builds under it."""
+    del item
+    port = api.index_factory(spec, reducer_kw={"steps": 5}, device="cpu")
+    want = jax_api.index_factory(spec, reducer_kw={"steps": 5})
+    assert type(port).__name__ == type(want).__name__ == "MutableIndex"
+    assert type(port._inner.base).__name__ == type(want._inner.base).__name__
+    assert (port.imbalance_trigger, port.drift_tol, port.drift_threshold) \
+        == (want.imbalance_trigger, want.drift_tol, want.drift_threshold)
 
 
 def _storage(stack):
@@ -477,7 +484,18 @@ def test_factory_builds_the_quantized_graph_stages_on_cpu(spec, corpus,
 
 
 def test_unported_hnsw_options_name_their_items(corpus):
+    """``HNSWIndex.add`` (once refused, naming item 11) inserts into the
+    live graph as the reference's does: the same graph, bit for bit, and
+    the new rows answer at once."""
     idx = api.HNSWIndex(m=4, ef_construction=20, device="cpu").build(
         corpus[:50])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        idx.add(corpus[50:60])
+    ref = jax_api.HNSWIndex(m=4, ef_construction=20).build(corpus[:50])
+    ids = idx.add(corpus[50:60])
+    np.testing.assert_array_equal(ids, ref.add(corpus[50:60]))
+    g, rg = idx._g, ref._g
+    for name in ("levels", "links0", "links"):
+        np.testing.assert_array_equal(getattr(g, name), getattr(rg, name))
+    assert g.entry == rg.entry and idx.fingerprint() == ref.fingerprint()
+    assert set(idx.add_times) == {"insert_s", "upload_s"}
+    res = idx.search(corpus[50:60], 1)
+    np.testing.assert_array_equal(res.indices[:, 0], ids)

@@ -215,8 +215,22 @@ def test_parse_rejects_what_the_reference_rejects(bad):
     ("Mut,Flat", "item 11"),
 ])
 def test_factory_names_the_roadmap_item_of_unported_stages(spec, item):
-    with pytest.raises(NotImplementedError, match=item):
-        api.index_factory(spec, device="cpu")
+    """The stages ``ROADMAP.md`` queue A items 8 (baseline reducers) and 11
+    (``Mut``) ported, once refused, build and answer as the reference's
+    stacks on an integer corpus: ids equal, scores within f32 rounding."""
+    rng = np.random.default_rng(9)
+    x = rng.integers(-8, 8, (300, 16)).astype(np.float32)
+    q = x[:12] + 0.25
+    port = api.index_factory(spec, device="cpu").build(x)
+    want = jax_api.index_factory(spec).build(x)
+    cls = "MutableIndex" if item == "item 11" else "TwoStageIndex"
+    assert type(port).__name__ == type(want).__name__ == cls
+    got, ref = port.search(q, 10), want.search(q, 10)
+    np.testing.assert_array_equal(got.indices, np.asarray(ref.indices))
+    np.testing.assert_allclose(got.scores, np.asarray(ref.scores),
+                               rtol=1e-5, atol=1e-4)
+    if item == "item 11":   # the PCA stack hashes its f32-rounded codes
+        assert port.fingerprint() == want.fingerprint()
 
 
 @pytest.mark.parametrize("spec,cls", [

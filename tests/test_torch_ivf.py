@@ -11,8 +11,12 @@ Tolerances: centroids within ``rtol=1e-5`` (plus ``atol=1e-6`` for
 coordinates that cancel to near zero: float32 cell sums taken in another
 order); assignments, list layouts, ids, stats and fingerprints equal. On
 integer-valued corpora every score is exact in float32, so scores must be
-bit-equal, ties included (cells to the lower cell, candidates to the lower
-slab position).
+bit-equal. Probed cells tie to the lower cell, as in the reference. The
+candidates rank by (score descending, corpus id ascending), where the
+reference ranks equal scores by slab position (``ROADMAP.md`` C8): so the
+probe answers are held to the reference's scores, to its ids wherever a
+score is not tied, and bit for bit to a numpy oracle that ranks the same
+probed (score, id) pairs by (-score, id) (:func:`assert_probe_answer`).
 """
 import numpy as np
 import pytest
@@ -54,6 +58,48 @@ def _jax_init(n, n_clusters, seed):
 
 def _t(x):
     return torch.from_numpy(np.array(x))
+
+
+def probe_oracle(full_v, full_i, k):
+    """Each row's probed (score, id) pairs ranked by (score descending, id
+    ascending) in numpy, the first ``k``; -inf slots carry id -1, and rows
+    short of ``k`` pad with (-inf, -1)."""
+    full_v, full_i = np.asarray(full_v), np.asarray(full_i)
+    order = np.lexsort((full_i, -full_v), axis=1)[:, :k]
+    v = np.take_along_axis(full_v, order, 1)
+    i = np.where(np.isfinite(v), np.take_along_axis(full_i, order, 1), -1)
+    pad = k - v.shape[1]
+    if pad > 0:
+        v = np.concatenate([v, np.full((v.shape[0], pad), -np.inf,
+                                       v.dtype)], 1)
+        i = np.concatenate([i, np.full((i.shape[0], pad), -1, i.dtype)], 1)
+    return v, i
+
+
+def assert_probe_answer(got, want, full, exact=True):
+    """C8's comparison of an IVF probe answer ``got`` = (scores, ids) with
+    the reference's ``want``: scores bit-equal (``exact``, integer
+    corpora) or within f32 tolerance; ids equal to the reference's wherever
+    the score is not tied in the probed slab; ids bit-equal to
+    :func:`probe_oracle` over ``full``, every probed (score, id) pair of
+    the reference. Returns the number of tied answer slots."""
+    got_v, got_i = (np.asarray(a) for a in got)
+    want_v, want_i = (np.asarray(a) for a in want)
+    full_v, full_i = (np.asarray(a) for a in full)
+    if exact:
+        np.testing.assert_array_equal(got_v, want_v)
+    else:
+        np.testing.assert_allclose(got_v, want_v, rtol=RTOL, atol=1e-4)
+    np.testing.assert_array_equal(got_i, probe_oracle(full_v, full_i,
+                                                      got_i.shape[1])[1])
+    n_tied = 0
+    for r in range(got_i.shape[0]):
+        fin = full_v[r][np.isfinite(full_v[r])]
+        vals, counts = np.unique(fin, return_counts=True)
+        tied = np.isin(want_v[r], vals[counts > 1])
+        n_tied += int(tied.sum())
+        np.testing.assert_array_equal(got_i[r][~tied], want_i[r][~tied])
+    return n_tied
 
 
 def _port_ivf(ref: jax_ivf.IVFIndex) -> ivf.IVFIndex:
@@ -128,11 +174,41 @@ def test_probe_search_integer_corpus_bit_equal(nprobe, k):
     x = _int_corpus(509, 16, seed=4)
     q = _int_corpus(13, 16, seed=5)
     ref = jax_ivf.build(jnp.asarray(x), 16, seed=1)
-    k = min(k, nprobe * ref.lists.shape[1])
+    slab = nprobe * ref.lists.shape[1]
+    k = min(k, slab)
     want = jax_ivf.search(ref, jnp.asarray(q), k, nprobe)
+    full = jax_ivf.search(ref, jnp.asarray(q), slab, nprobe)
     got = ivf.search(_port_ivf(ref), torch.from_numpy(q), k, nprobe)
-    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert_probe_answer((got[0].numpy(), got[1].numpy()), want, full)
+
+
+def test_probe_ties_break_to_the_lower_id_c8():
+    """A hand-made tie: two rows at one distance from the query, the
+    higher id first in its list. The reference returns them in slab order
+    (the higher id first); the port returns the lower id first, and keeps
+    that order when the list is re-laid (C8)."""
+    cent = torch.tensor([[0.0, 0.0], [10.0, 10.0]])
+    vecs = torch.tensor([[[1.0, 0.0], [0.0, 1.0], [3.0, 3.0]],
+                         [[10.0, 10.0], [0.0, 0.0], [0.0, 0.0]]])
+    mask = torch.tensor([[True, True, True], [True, False, False]])
+    q = torch.tensor([[0.0, 0.0]])
+    for lists in ([[7, 2, 5], [9, -1, -1]], [[2, 7, 5], [9, -1, -1]]):
+        lists = torch.tensor(lists, dtype=torch.int32)
+        index = ivf.IVFIndex(centroids=cent, lists=lists, list_vecs=vecs,
+                             list_mask=mask, spill=0)
+        v, i = ivf.search(index, q, 3, nprobe=1)
+        assert i.tolist() == [[2, 7, 5]] and v.tolist() == [[-1.0, -1.0,
+                                                             -18.0]]
+        ref = jax_ivf.IVFIndex(centroids=jnp.asarray(cent.numpy()),
+                               lists=jnp.asarray(lists.numpy()),
+                               list_vecs=jnp.asarray(vecs.numpy()),
+                               list_mask=jnp.asarray(mask.numpy()), spill=0)
+        want = jax_ivf.search(ref, jnp.asarray(q.numpy()), 3, 1)
+        assert np.asarray(want[1]).tolist() == [lists[0].tolist()]
+    # -0.0 and +0.0 are one score: the lower id first
+    s = torch.tensor([[0.0, -0.0, -1.0]])
+    v, i = ivf.topk_by_score_then_id(s, torch.tensor([[4, 3, 1]]), 3)
+    assert i.tolist() == [[3, 4, 1]]
 
 
 def test_probe_search_float_corpus():
@@ -181,14 +257,15 @@ def test_loaded_index_answers_like_the_reference(saved_ivf, nprobe,
     q = _int_corpus(9, 16, seed=6)
     alive = (np.random.default_rng(7).random(corpus.shape[0]) > 0.3
              if with_alive else None)
-    want = ref.search(q, 30, alive=alive,
-                      params=None if nprobe is None
-                      else jax_api.SearchParams(nprobe=nprobe))
+    p = None if nprobe is None else jax_api.SearchParams(nprobe=nprobe)
+    want = ref.search(q, 30, alive=alive, params=p)
+    full = ref.search(q, ref.ntotal, alive=alive, params=p)
     got = port.search(q, 30, alive=alive,
                       params=None if nprobe is None
                       else api.SearchParams(nprobe=nprobe))
-    np.testing.assert_array_equal(got.indices, np.asarray(want.indices))
-    np.testing.assert_array_equal(got.scores, np.asarray(want.scores))
+    assert_probe_answer((got.scores, got.indices),
+                        (want.scores, want.indices),
+                        (full.scores, full.indices))
     assert got.stats == want.stats
     if with_alive:
         dead = np.flatnonzero(~alive)
@@ -216,8 +293,9 @@ def test_k_beyond_the_probed_lists_pads_like_the_reference(saved_ivf):
     want = ref.search(q, 400, params=jax_api.SearchParams(nprobe=p))
     got = port.search(q, 400, params=api.SearchParams(nprobe=p))
     assert got.indices.shape == (4, 400)
-    np.testing.assert_array_equal(got.indices, np.asarray(want.indices))
-    np.testing.assert_array_equal(got.scores, np.asarray(want.scores))
+    assert_probe_answer((got.scores, got.indices),
+                        (want.scores, want.indices),
+                        (want.scores, want.indices))
     assert np.isneginf(got.scores[got.indices < 0]).all()
 
 
@@ -235,8 +313,10 @@ def test_add_and_cell_imbalance_match_the_reference(saved_ivf, tmp_path,
     assert port.fingerprint() == ref.fingerprint()
     q = np.concatenate([new[:3], _int_corpus(3, 16, seed=14)])
     want, got = ref.search(q, 10), port.search(q, 10)
-    np.testing.assert_array_equal(got.indices, np.asarray(want.indices))
-    np.testing.assert_array_equal(got.scores, np.asarray(want.scores))
+    full = ref.search(q, ref.ntotal)
+    assert_probe_answer((got.scores, got.indices),
+                        (want.scores, want.indices),
+                        (full.scores, full.indices))
     assert got.stats == want.stats
 
 

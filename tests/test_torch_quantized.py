@@ -16,7 +16,11 @@ XLA takes its own order, so those values (and the scores built from them)
 are held within ``rtol=1e-5`` (``1e-6`` for the norms), and PQ codebooks,
 k-means centroids in float32 sums of another order, within ``rtol=1e-5,
 atol=1e-6``. On integer-valued inputs every sum is exact, so scores must
-be bit-equal there, ties included (to the lower row, cell or slot).
+be bit-equal there, ties included (to the lower row or cell). The IVF
+probes rank equal scores by corpus id where the reference ranks them by
+slab position (``ROADMAP.md`` C8): their answers are held to
+``test_torch_ivf.assert_probe_answer`` (the reference's scores, its ids
+where untied, a (-score, id) numpy oracle bit for bit).
 """
 import numpy as np
 import pytest
@@ -34,6 +38,7 @@ from repro.search import quantize as jq  # noqa: E402
 from repro_torch import api  # noqa: E402
 from repro_torch.search import ivf  # noqa: E402
 from repro_torch.search import quantize as tq  # noqa: E402
+from test_torch_ivf import assert_probe_answer  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -173,16 +178,14 @@ def test_ivf_sq8_search_matches_reference(nprobe, k, integer, monkeypatch):
                              ref.step, jnp.asarray(q), k, nprobe)
     args = (_t(co.centroids), _t(co.lists), _t(codes), _t(rsq),
             _t(co.list_mask), _t(ref.vmin), _t(ref.step), _t(q), k, nprobe)
+    full = jq.ivf_sq8_search(co.centroids, co.lists, jnp.asarray(codes),
+                             jnp.asarray(rsq), co.list_mask, ref.vmin,
+                             ref.step, jnp.asarray(q), nprobe * cap, nprobe)
     got = tq.ivf_sq8_search(*args)
     monkeypatch.setattr(tq, "SLAB_BYTES", nprobe * cap * d * 4 * 3)
     chunked = tq.ivf_sq8_search(*args)       # chunks of three queries
     for v, i in (got, chunked):
-        np.testing.assert_array_equal(_n(i), np.asarray(want[1]))
-        if integer:
-            np.testing.assert_array_equal(_n(v), np.asarray(want[0]))
-        else:
-            np.testing.assert_allclose(_n(v), np.asarray(want[0]),
-                                       rtol=RTOL, atol=1e-4)
+        assert_probe_answer((_n(v), _n(i)), want, full, exact=integer)
 
 
 # ---------------------------------------------------------------------------
@@ -264,16 +267,14 @@ def test_ivf_pq_search_matches_reference(nprobe, k, integer, monkeypatch):
                             nprobe)
     args = (_t(co.centroids), _t(co.lists), _t(codes), _t(co.list_mask),
             _t(cb), _t(q), k, nprobe)
+    full = jq.ivf_pq_search(co.centroids, co.lists, jnp.asarray(codes),
+                            co.list_mask, jnp.asarray(cb), jnp.asarray(q),
+                            nprobe * cap, nprobe)
     got = tq.ivf_pq_search(*args)
     monkeypatch.setattr(tq, "SLAB_BYTES", nprobe * cap * m * 16 * 4)
     chunked = tq.ivf_pq_search(*args)        # chunks of four queries
     for v, i in (got, chunked):
-        np.testing.assert_array_equal(_n(i), np.asarray(want[1]))
-        if integer:
-            np.testing.assert_array_equal(_n(v), np.asarray(want[0]))
-        else:
-            np.testing.assert_allclose(_n(v), np.asarray(want[0]),
-                                       rtol=RTOL, atol=1e-4)
+        assert_probe_answer((_n(v), _n(i)), want, full, exact=integer)
 
 
 def test_bytes_per_code():
