@@ -110,7 +110,31 @@ Phases:
    monitor quiet on rows near the corpus and tripping a reducer retrain on
    rows off its manifold; (f) ``Mut,RAE64,Shard8,IVF256,Rerank4``, an
    ``add`` that rebuilds the sharded base, a delete, ``topk_merge`` under
-   the mask.
+   the mask;
+10. serving and self-tuning (``repro_torch.serve``, ``repro_torch.tune``):
+   (a) ``SearchEngine(max_batch=32, max_wait_ms=2, cache_size=1024)`` over
+   ``RAE64,Flat|IVF256|PQ8x8,Rerank4`` on phase 5's corpus and fit (no
+   cut), warmed at k = 10: 64 client threads send the 1,024 held-out
+   queries inside ``no_retrace(budget=0)``, every answer equal (ids, score
+   bits) to the query's lone search, fewer batches than requests; QPS,
+   p50 / p99 latency, the bucket histogram, the sequential q=1 loop's QPS;
+   256 repeats, every one a cache hit equal to its first answer; (b)
+   ``engine.mutate`` on ``Mut,RAE64,Flat,Rerank4`` under 32 clients
+   (1,000 deletes never surfacing after, 2,500 held-out rows added and
+   found as themselves, cached pre-mutation answers retired) and
+   ``hot_swap`` from the Flat to the IVF256 stack under 32 clients
+   (nothing dropped, every reply one of the two stacks' lone answers); (c)
+   ``table8_autotune.run()``'s configuration (20,000 x 128, RAE64 at 600
+   steps, ``RAE64,IVF256|HNSW32,Rerank4``): ``sweep`` on 256 tune
+   queries, then 512 holdout queries through an engine tuned to recall
+   0.95 and 0.99 with escalation, held to ``scripts/check_bench.py``'s
+   autotune bars (recall >= target - 0.01, escalation rate in (0, 0.95)),
+   each escalated row alone equal to the same row in its batch; the graph
+   with an SQ8 payload served by 64 clients, each answer its lone one; (d)
+   HTTP on loopback over the IVF256 engine (256 ``POST /search`` from 32
+   threads, ``/stats``, ``/healthz``, 400 for a NaN and a wrong-dim query,
+   the cache not grown by them); (e) ``python -m
+   repro_torch.launch.serve`` as a subprocess, exit 0.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
 times ``topk_merge`` (Q = 256 and 1 at C = 320, k = 40; Q = 256 at C =
@@ -123,10 +147,11 @@ and one query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``,
 tree's, in turns (parent, change, change, parent), each in a process of
 its own, on one card.
 
-Every launch counter is set to 0 just before phases 3 to 9 drive their
+Every launch counter is set to 0 just before phases 3 to 10 drive their
 paths and read just after; a kernel of the path that did not launch fails
-the run. Phase 9's launches join the ``kernels`` line (``launches``, and
-``launches_phase9`` for its share). The last lines are a ``kernels`` JSON object, the card's
+the run. Phase 9's and phase 10's launches join the ``kernels`` line
+(``launches``, and ``launches_phase9`` / ``launches_phase10`` for their
+shares). The last lines are a ``kernels`` JSON object, the card's
 name and power limit, and ``{"ok": true, "device": ...}``. A phase that
 fails is reported and the next one runs; if any failed, the script prints
 no result and exits with code 1. Without a CUDA card it exits with code 2
@@ -3296,7 +3321,7 @@ def card_label() -> str:
 
 
 class PathLaunches:
-    """Launch counts of the kernels on phase 9's paths, summed over the
+    """Launch counts of the kernels on phase 9's or phase 10's paths, summed over the
     stretches that drive them (``with launches.main():``); launches made
     to compare a kernel with its plain version fall outside them."""
 
@@ -3305,6 +3330,7 @@ class PathLaunches:
         from repro_torch.kernels.graph_beam_q.kernel import (
             graph_traverse_q_cuda)
         from repro_torch.kernels.l2_topk.kernel import l2_topk_scan_cuda
+        from repro_torch.kernels.pq_adc.kernel import pq_adc_cuda
         from repro_torch.kernels.rae_encode.kernel import rae_encode_cuda
         from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda
 
@@ -3313,7 +3339,8 @@ class PathLaunches:
                          "l2_topk": l2_topk_scan_cuda,
                          "graph_beam": graph_traverse_cuda,
                          "graph_beam_q": graph_traverse_q_cuda,
-                         "topk_merge": topk_merge_cuda}
+                         "topk_merge": topk_merge_cuda,
+                         "pq_adc": pq_adc_cuda}
         self.total = {k: 0 for k in self.counters}
 
     @contextlib.contextmanager
@@ -3886,6 +3913,580 @@ def phase9(device: str) -> dict:
     return launches.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: serving and self-tuning (repro_torch.serve, repro_torch.tune)
+# ---------------------------------------------------------------------------
+SERVE_SPECS_1M = ("RAE64,Flat,Rerank4", "RAE64,IVF256,Rerank4",
+                  "RAE64,PQ8x8,Rerank4")
+#: table8_autotune.run()'s default configuration (n, dim, RAE steps)
+TUNE_N, TUNE_DIM, TUNE_STEPS = 20_000, 128, 600
+TUNE_TARGETS = (0.95, 0.99)
+#: scripts/check_bench.py's autotune bars: recall slack, escalation ceiling
+TUNE_SLACK, ESCALATION_CEIL = 0.01, 0.95
+
+
+def same_answer(a, b, row: int = 0) -> bool:
+    """``a`` (a one-row result) equals row ``row`` of ``b``: ids, score
+    bits."""
+    return (np.array_equal(a.indices[0], b.indices[row])
+            and a.scores[0].tobytes() == b.scores[row].tobytes())
+
+
+def client_storm(engine, queries: np.ndarray, n_clients: int, k: int = 10
+                 ) -> tuple[list, float]:
+    """``n_clients`` threads send ``queries`` through ``search_one``, each
+    its share in turn (query j from client j mod n_clients); the answers
+    in query order and the wall seconds from the first send to the last
+    answer."""
+    import threading
+
+    out = [None] * len(queries)
+    start = threading.Barrier(n_clients + 1)
+
+    def client(c):
+        start.wait()
+        for j in range(c, len(queries), n_clients):
+            out[j] = engine.search_one(queries[j], k)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    return out, time.perf_counter() - t0
+
+
+def phase10_engine_1m(device: str, launches: PathLaunches,
+                      n: int = 1_000_003, nq: int = 1024, steps: int = 3000
+                      ) -> dict:
+    """(a) ``SearchEngine(max_batch=32, max_wait_ms=2, cache_size=1024)``
+    over the Flat, IVF256 and PQ8x8 stacks on phase 5's 1,000,003 x 768
+    corpus and fit (no cut), warmed at k = 10: 64 client threads send the
+    1,024 held-out queries (16 each) inside ``no_retrace(budget=0)``;
+    every answer equal, ids and score bits, to the stack's search of the
+    query alone (that sequential q=1 loop's QPS printed beside the
+    engine's); then 256 of them again, each a cache hit equal to its first
+    answer. (d) HTTP on loopback over the IVF256 engine."""
+    from repro_torch import api
+    from repro_torch.analysis.runtime import no_retrace
+    from repro_torch.serve import SearchEngine
+
+    corpus, queries, _ = full_data(n, nq)
+    reducer, _ = fitted_rae(n, nq, steps, device)
+    out, n_rep = {}, min(256, nq)
+    for spec in SERVE_SPECS_1M:
+        idx = api.index_factory(spec, device=device)
+        idx.reducer = reducer               # phase 5's fit, shared
+        with launches.main():
+            idx.build(corpus)
+            sync()
+            t0 = time.perf_counter()
+            lone = [idx.search(queries[i:i + 1], 10) for i in range(nq)]
+            t_seq = time.perf_counter() - t0
+            eng = SearchEngine(idx, max_batch=32, max_wait_ms=2.0,
+                               cache_size=1024).start()
+            t0 = time.perf_counter()
+            eng.warmup(ks=(10,))
+            t_warm = time.perf_counter() - t0
+            with no_retrace(budget=0, what=f"{spec}: storm") as used:
+                got, wall = client_storm(eng, queries, 64)
+                cold = used()
+            st = eng.stats()
+            hits0 = eng.cache.hits
+            again, wall2 = client_storm(eng, queries[:n_rep], 64)
+            st2 = eng.stats()
+        bad = sum(not same_answer(g, lo) for g, lo in zip(got, lone))
+        check(bad == 0, f"{spec}: {bad}/{nq} coalesced answers differ from "
+                        f"the query's lone answer (ids or score bits)")
+        coalesced = sum(int(b) * c for b, c in st["batch_size_hist"].items())
+        check(st["requests"] == nq and coalesced == nq,
+              f"{spec}: {st['requests']} requests, histogram "
+              f"{st['batch_size_hist']}")
+        check(st["batches"] < nq, f"{spec}: {st['batches']} batches for "
+                                  f"{nq} requests: nothing coalesced")
+        check(cold == 0, f"{spec}: the storm paid {cold} cold-path events")
+        hit_rate = (eng.cache.hits - hits0) / n_rep
+        same2 = sum(same_answer(a, g) for a, g in zip(again, got))
+        check(same2 == n_rep, f"{spec}: {n_rep - same2}/{n_rep} repeats "
+                              f"differ from their first answer")
+        check(hit_rate == 1.0, f"{spec}: repeat hit rate {hit_rate}")
+        log(f"phase 10: {spec} on imdb_like {n}x768 (phase 5's fit) "
+            f"[{card_label()}]: engine max_batch 32, max_wait 2 ms, warm-up "
+            f"{t_warm:.2f} s; 64 clients x {nq // 64} queries: QPS "
+            f"{nq / wall:.1f}, latency p50 {st['latency_ms']['p50']} ms, "
+            f"p99 {st['latency_ms']['p99']} ms, {st['batches']} batches "
+            f"(mean {st['batch_size_mean']}), batch sizes "
+            f"{st['batch_size_hist']}, buckets {st['bucket_hist']}; "
+            f"sequential q=1 loop QPS {nq / t_seq:.1f}; coalesced == alone "
+            f"(ids, score bits): {nq - bad}/{nq}; cold-path events in the "
+            f"storm {cold}; {n_rep} repeats: hit rate {hit_rate:.4f}, QPS "
+            f"{n_rep / wall2:.1f}, equal to the first answers "
+            f"{same2}/{n_rep}; "
+            f"cache {st2['cache']}")
+        out[spec] = {"qps": nq / wall, "seq_qps": nq / t_seq,
+                     "p50": st["latency_ms"]["p50"],
+                     "p99": st["latency_ms"]["p99"],
+                     "batches": st["batches"], "hit_rate": hit_rate}
+        if "IVF" in spec:
+            eng.cache.clear()      # HTTP requests reach the index again
+            with launches.main():
+                phase10_http(eng, queries, lone)
+        eng.stop()
+        del idx, eng, lone, got, again
+        free_card()
+    return out
+
+
+def phase10_http(eng, queries: np.ndarray, lone: list) -> None:
+    """(d) ``start_http_server(engine, port=0)`` on loopback: 256 ``POST
+    /search`` single queries from 32 threads, each the engine's answer;
+    ``/stats`` and ``/healthz`` 200; a NaN query and a wrong-dim query
+    400, the cache not grown by them."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.serve import start_http_server
+
+    server, _ = start_http_server(eng, port=0)
+    port = server.server_address[1]
+    url = f"http://127.0.0.1:{port}"
+
+    def post(payload):
+        req = urllib.request.Request(
+            url + "/search", data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        n, replies = min(256, len(queries)), {}
+        start = threading.Barrier(32)
+
+        def client(c):
+            start.wait()
+            for j in range(c, n, 32):
+                replies[j] = post({"query": queries[j].tolist(), "k": 10})
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(32)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "an HTTP client hung")
+        wall = time.perf_counter() - t0
+        ok = 0
+        for j in range(n):
+            status, body = replies.get(j, (None, {}))
+            ok += int(status == 200
+                      and body["indices"] == lone[j].indices[0].tolist()
+                      and np.array_equal(np.asarray(body["scores"],
+                                                    np.float32),
+                                         lone[j].scores[0]))
+        check(ok == n, f"HTTP: {n - ok}/{n} replies not the engine's answer")
+        s_stats, stats = get("/stats")
+        s_health, health = get("/healthz")
+        check(s_stats == 200 and s_health == 200
+              and health["status"] == "ok",
+              f"HTTP: /stats {s_stats}, /healthz {s_health} {health}")
+        size0 = eng.cache.stats()["size"]
+        nan_q = queries[0].astype(float).tolist()
+        nan_q[3] = float("nan")
+        s_nan, b_nan = post({"query": nan_q, "k": 10})
+        s_dim, b_dim = post({"query": queries[0][:-1].tolist(), "k": 10})
+        size1 = eng.cache.stats()["size"]
+        check(s_nan == 400 and s_dim == 400,
+              f"HTTP: NaN query {s_nan} {b_nan}, wrong dim {s_dim} {b_dim}")
+        check(size1 == size0, f"HTTP: the cache grew {size0} -> {size1} "
+                              f"from refused requests")
+        log(f"phase 10: HTTP on loopback over the IVF256 engine: {n} POST "
+            f"/search from 32 threads in {wall:.2f} s ({n / wall:.1f} "
+            f"requests/s), equal to the engine's answers {ok}/{n}; /stats "
+            f"{s_stats} ({stats['requests']} requests, {stats['batches']} "
+            f"batches), /healthz {s_health}; NaN query {s_nan} "
+            f"({b_nan['error']!r}), wrong dim {s_dim} ({b_dim['error']!r}); "
+            f"cache size {size0} -> {size1}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def phase10_mutation(device: str, launches: PathLaunches,
+                     n: int = 1_000_003, nq: int = 1024, steps: int = 3000
+                     ) -> dict:
+    """(b) ``engine.mutate`` on ``Mut,RAE64,Flat,Rerank4`` (phase 5's fit)
+    while 32 clients run: 1,000 seeded deletes, none surfacing after; a
+    2,500-row add of held-out rows, each found as itself; the cached
+    pre-mutation answers retired. Then ``hot_swap`` from the Flat stack to
+    the IVF256 stack under 32 clients: nothing dropped, every reply one of
+    the two stacks' lone answers, one swap counted; the batches served
+    during the swap's build, printed."""
+    import threading
+
+    from repro_torch import api
+    from repro_torch.serve import SearchEngine
+
+    corpus, queries, _ = full_data(n, nq)
+    reducer, _ = fitted_rae(n, nq, steps, device)
+    extra = holdout_rows(n, nq)[:2500]
+    rng = np.random.default_rng(10)
+    dead = np.sort(rng.choice(n, 1000, replace=False)).astype(np.int64)
+    probe = queries[:min(256, nq // 2)]       # what the clients send
+    kept = queries[nq // 2:nq // 2 + 32]      # cached before the delete
+
+    def load(eng, stop, log_):
+        """A client: the probe queries in turn until ``stop``; each
+        answer with its send and reply times."""
+        j = 0
+        while not stop.is_set():
+            t_send = time.perf_counter()
+            r = eng.search_one(probe[j % len(probe)], 10)
+            log_.append((t_send, time.perf_counter(), j % len(probe), r))
+            j += 1
+
+    def run_clients(eng, body, n_clients=32):
+        stop, logs = threading.Event(), [[] for _ in range(n_clients)]
+        threads = [threading.Thread(target=load, args=(eng, stop, logs[c]))
+                   for c in range(n_clients)]
+        for t in threads:
+            t.start()
+        time.sleep(0.2)
+        try:
+            result = body()
+        finally:
+            time.sleep(0.2)
+            stop.set()
+            for t in threads:
+                t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        return result, [x for lg in logs for x in lg]
+
+    mut = api.index_factory("Mut,RAE64,Flat,Rerank4", device=device)
+    mut._inner.reducer = reducer
+    with launches.main():
+        mut.build(corpus)
+        eng = SearchEngine(mut, max_batch=32, max_wait_ms=2.0,
+                           cache_size=1024).start().warmup(ks=(10,))
+        for q in kept:
+            eng.search_one(q, 10)
+        hits0 = eng.cache.hits
+        for q in kept:
+            eng.search_one(q, 10)
+        hits_kept = eng.cache.hits - hits0
+
+        def deletes():
+            t0 = time.perf_counter()
+            out = eng.mutate(lambda ix: ix.delete(dead))
+            return out, time.perf_counter(), time.perf_counter() - t0
+
+        (n_del, t_deleted, dt_del), log_del = run_clients(eng, deletes)
+        hits1 = eng.cache.hits
+        after = [eng.search_one(q, 10) for q in kept]
+        hits2 = eng.cache.hits
+        self_dead = eng.search(corpus[dead[:256]], 10)
+
+        def adds():
+            t0 = time.perf_counter()
+            ids = eng.mutate(lambda ix: ix.add(extra))
+            return ids, time.perf_counter() - t0
+
+        (ext, dt_add), log_add = run_clients(eng, adds)
+        found, _ = client_storm(eng, extra, 32)
+        st = eng.stats()
+        eng.stop()
+        # what every mutation makes the engine pay: the content hash
+        t0 = time.perf_counter()
+        mut.fingerprint()
+        t_fp = time.perf_counter() - t0
+    check(n_del == len(dead), f"mutate: delete tombstoned {n_del}")
+    check(hits_kept == 32, f"mutate: the 32 repeats before the delete hit "
+                           f"{hits_kept} times")
+    check(hits2 == hits1, f"mutate: {hits2 - hits1} pre-mutation answers "
+                          f"replayed after the delete")
+    surfaced = sum(int(np.isin(r.indices, dead).sum()) for t_send, _, _, r
+                   in log_del + log_add if t_send > t_deleted)
+    surfaced += int(np.isin(self_dead.indices, dead).sum())
+    surfaced += sum(int(np.isin(r.indices, dead).sum()) for r in after)
+    check(surfaced == 0, f"mutate: {surfaced} deleted ids surfaced")
+    check(np.array_equal(ext, np.arange(n, n + len(extra))),
+          f"mutate: add returned {ext[:3]}...")
+    hits = sum(int(r.indices[0, 0] == n + i) for i, r in enumerate(found))
+    check(hits == len(extra), f"mutate: {hits}/{len(extra)} added rows "
+                              f"found as themselves at rank 1")
+    check(st["mutation"]["mutations"] == 2
+          and st["mutation"]["index"]["deleted"] == len(dead),
+          f"mutate: stats {st['mutation']}")
+    log(f"phase 10: mutate under 32 clients on Mut,RAE64,Flat,Rerank4 "
+        f"({n}x768, phase 5's fit) [{card_label()}]: delete {len(dead)} ids "
+        f"{dt_del * 1e3:.1f} ms (cached pre-mutation answers retired: "
+        f"{hits2 - hits1} replayed of 32), {len(log_del)} requests served "
+        f"meanwhile; add {len(extra)} rows {dt_add:.2f} s, "
+        f"{len(log_add)} requests served meanwhile; deleted ids surfaced "
+        f"after the delete {surfaced}; added rows found as themselves "
+        f"{hits}/{len(extra)}; one fingerprint {t_fp:.2f} s (the engine "
+        f"re-reads it after each mutation and swap); {st['mutation']}")
+    del mut, eng
+    free_card()
+
+    flat = api.index_factory("RAE64,Flat,Rerank4", device=device)
+    flat.reducer = reducer
+    ivf_box = {}
+
+    def build_ivf():
+        ivf = api.index_factory("RAE64,IVF256,Rerank4", device=device)
+        ivf.reducer = reducer
+        ivf_box["t0"] = time.perf_counter()
+        ivf.build(corpus)
+        sync()
+        ivf_box["t1"] = time.perf_counter()
+        return ivf
+
+    with launches.main():
+        flat.build(corpus)
+        lone_flat = [flat.search(probe[i:i + 1], 10)
+                     for i in range(len(probe))]
+        eng = SearchEngine(flat, max_batch=32, max_wait_ms=2.0,
+                           cache_size=0).start().warmup(ks=(10,))
+        promoted, log_swap = run_clients(
+            eng, lambda: eng.hot_swap(build_ivf, ks=(10,)))
+        lone_ivf = [promoted.search(probe[i:i + 1], 10)
+                    for i in range(len(probe))]
+        st = eng.stats()
+        eng.stop()
+    n_sent = len(log_swap)
+    torn = sum(not (same_answer(r, lone_flat[j])
+                    or same_answer(r, lone_ivf[j]))
+               for _, _, j, r in log_swap)
+    dropped = sum(r is None for _, _, _, r in log_swap)
+    check(dropped == 0 and st["requests"] == n_sent,
+          f"hot_swap: {dropped} dropped, {st['requests']} of {n_sent} served")
+    check(torn == 0, f"hot_swap: {torn}/{n_sent} replies are neither "
+                     f"stack's lone answer")
+    check(st["mutation"]["swaps"] == 1, f"hot_swap: {st['mutation']}")
+    during = [t1 - t0 for t0, t1, _, _ in log_swap
+              if ivf_box["t0"] <= t0 <= ivf_box["t1"]]
+    outside = [t1 - t0 for t0, t1, _, _ in log_swap
+               if not ivf_box["t0"] <= t0 <= ivf_box["t1"]]
+    log(f"phase 10: hot_swap Flat -> IVF256 under 32 clients: {n_sent} "
+        f"requests, dropped {dropped}, each one of the two stacks' lone "
+        f"answers: {n_sent - torn}/{n_sent}; swaps "
+        f"{st['mutation']['swaps']}; the IVF256 build on the caller's "
+        f"thread {ivf_box['t1'] - ivf_box['t0']:.2f} s: request latency "
+        f"during it {spread(during) if during else 'no request'}, outside "
+        f"it {spread(outside)}")
+    del flat, promoted, eng
+    free_card()
+    return {"torn": torn, "sent": n_sent}
+
+
+def tune_data(n: int, device: str) -> dict:
+    """``table8_autotune.run()``'s data at ``n`` rows: the corpus, 256 tune
+    and 512 holdout queries (disjoint), and their exact top-10."""
+    from repro_torch import api
+    from repro_torch.data import synthetic
+
+    corpus = synthetic.embedding_corpus(n, TUNE_DIM, n_clusters=64,
+                                        intrinsic=32, seed=0)
+    rng = np.random.default_rng(1)
+    pick = rng.choice(n, 256 + 512, replace=False)
+    qs = corpus[pick] + 0.05 * rng.standard_normal(
+        (768, TUNE_DIM)).astype(np.float32)
+    exact = api.FlatIndex(device=device).build(corpus)
+    return {"corpus": corpus, "tune_q": qs[:256], "hold_q": qs[256:],
+            "tune_gt": exact.search(qs[:256], 10).indices,
+            "hold_gt": exact.search(qs[256:], 10).indices}
+
+
+def phase10_tuned(device: str, launches: PathLaunches, n: int = TUNE_N
+                  ) -> dict:
+    """(c) The self-tuned engine at ``table8_autotune.run()``'s defaults:
+    RAE64 (600 steps) under ``RAE64,IVF256,Rerank4`` and
+    ``RAE64,HNSW32,Rerank4`` (``batched=True``); ``sweep`` on the 256 tune
+    queries, then the 512 holdout queries through ``SearchEngine(
+    target_recall=..., curve=..., escalation=EscalationPolicy(3, 0.02,
+    recall_slack=0.01))`` in batches of 32 for targets 0.95 and 0.99,
+    held to ``scripts/check_bench.py``'s autotune bars; every escalated
+    row alone equal, bit for bit, to the same row in its batch. The graph
+    with an SQ8 payload (``RAE64,HNSW32,SQ8,Rerank4``, over a copy of the
+    same graph) serves the holdout through 64 clients, each answer its
+    lone one."""
+    from repro_torch import api
+    from repro_torch.analysis.runtime import no_retrace
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.search import hnsw
+    from repro_torch.serve import SearchEngine
+    from repro_torch.tune import EscalationPolicy, sweep
+
+    t0 = time.perf_counter()
+    d = tune_data(n, device)
+    reducer = api.make_reducer("rae", 64, steps=TUNE_STEPS, seed=0,
+                               device=device)
+    reducer.fit(d["corpus"])
+    sync()
+    t_fit = time.perf_counter() - t0
+    hold_q, hold_gt = d["hold_q"], d["hold_gt"]
+    esc = EscalationPolicy(delta=3, threshold=0.02, recall_slack=TUNE_SLACK)
+    stacks = (("RAE64,IVF256,Rerank4", lambda: api.IVFFlatIndex(
+                  n_cells=256, device=device)),
+              ("RAE64,HNSW32,Rerank4", lambda: api.HNSWIndex(
+                  m=32, batched=True, device=device)))
+    out, graph = {}, None
+    for spec, make_base in stacks:
+        index = api.TwoStageIndex(reducer, make_base(), rerank_factor=4,
+                                  device=device)
+        with launches.main():
+            t0 = time.perf_counter()
+            index.build(d["corpus"])
+            sync()
+            t_build = time.perf_counter() - t0
+            index.search(hold_q[:32], 10)
+            dres = index.search(hold_q, 10)
+            t0 = time.perf_counter()
+            curve = sweep(index, d["tune_q"], d["tune_gt"], 10)
+            t_sweep = time.perf_counter() - t0
+        d_recall = recall_at_k(dres.indices, hold_gt)
+        d_evals = dres.stats["distance_evals"]
+        for target in TUNE_TARGETS:
+            eng = SearchEngine(index, max_batch=32, cache_size=0,
+                               target_recall=target, curve=curve,
+                               escalation=esc)
+            with launches.main():
+                eng.warmup(ks=(10,))
+                got, evals = [], 0.0
+                t0 = time.perf_counter()
+                with no_retrace(budget=0, what=f"{spec} tuned") as used:
+                    for s in range(0, len(hold_q), 32):
+                        r = eng.search(hold_q[s:s + 32], 10)
+                        got.append(r.indices)
+                        evals += r.stats["distance_evals"] * len(r.indices)
+                    cold = used()
+                wall = time.perf_counter() - t0
+                snap = eng.metrics.snapshot()
+                # escalated rows alone against the same rows in a batch
+                n_esc = n_same = 0
+                for s in range(0, len(hold_q), 32):
+                    chunk = hold_q[s:s + 32]
+                    res, mask = eng._escalated_search(chunk, 10)
+                    for i in np.flatnonzero(mask):
+                        solo, smask = eng._escalated_search(chunk[i:i + 1],
+                                                            10)
+                        n_esc += 1
+                        n_same += int(bool(smask[0])
+                                      and same_answer(solo, res, i))
+            recall = recall_at_k(np.concatenate(got), hold_gt)
+            rate = snap.get("escalation_rate", 0.0)
+            ratio = (evals / len(hold_q)) / max(d_evals, 1e-9)
+            params = eng.stats()["operating_point"]
+            check(recall >= target - TUNE_SLACK,
+                  f"{spec} slo {target}: holdout recall {recall:.4f}")
+            check(0.0 < rate < ESCALATION_CEIL,
+                  f"{spec} slo {target}: escalation rate {rate}")
+            check(n_same == n_esc, f"{spec} slo {target}: {n_esc - n_same}"
+                                   f"/{n_esc} escalated rows differ alone")
+            check(cold == 0, f"{spec} slo {target}: {cold} cold-path events")
+            log(f"phase 10: tuned {spec} on {n}x{TUNE_DIM} [{card_label()}]"
+                f": fit {t_fit:.2f} s, build {t_build:.2f} s, sweep "
+                f"{t_sweep:.2f} s ({len(curve.points)} Pareto points of "
+                f"{[p.params.to_dict() for p in curve.points]}); defaults "
+                f"recall@10 {d_recall:.4f}, evals {d_evals:.1f}; slo "
+                f"{target}: holdout recall@10 {recall:.4f} (bar "
+                f"{target - TUNE_SLACK:.2f}), evals {evals / len(hold_q):.1f}"
+                f" (tuned / default {ratio:.4f}), escalation rate {rate} "
+                f"(bar (0, {ESCALATION_CEIL})), escalated rows alone == in "
+                f"batch {n_same}/{n_esc}, QPS {len(hold_q) / wall:.1f}, "
+                f"cold-path events {cold}, point {params}")
+            out[(spec, target)] = {"recall": recall, "rate": rate,
+                                   "ratio": ratio}
+        if "HNSW" in spec:
+            graph = index
+    # the SQ8 payload over a copy of the same graph
+    sq8 = api.index_factory("RAE64,HNSW32,SQ8,Rerank4", device=device)
+    base, g = sq8.base, graph.base._g
+    base._g = hnsw.HNSWGraph(vecs=g.vecs.copy(), levels=g.levels.copy(),
+                             links0=g.links0.copy(), links=g.links.copy(),
+                             entry=g.entry, M=g.M)
+    with launches.main():
+        base._g.codec = hnsw.make_graph_codes(
+            base._g.vecs, base.quant, m=base.pq_m, bits=base.pq_bits,
+            iters=base.kmeans_iters, seed=base.seed, device=device)
+        base._upload()
+        sq8.reducer, sq8._db_full = reducer, graph._db_full
+        lone = [sq8.search(hold_q[i:i + 1], 10) for i in range(len(hold_q))]
+        eng = SearchEngine(sq8, max_batch=32, max_wait_ms=2.0,
+                           cache_size=0).start().warmup(ks=(10,))
+        got, wall = client_storm(eng, hold_q, 64)
+        st = eng.stats()
+        eng.stop()
+    bad = sum(not same_answer(a, b) for a, b in zip(got, lone))
+    recall = recall_at_k(np.concatenate([r.indices for r in got]), hold_gt)
+    check(bad == 0, f"RAE64,HNSW32,SQ8,Rerank4: {bad}/{len(hold_q)} "
+                    f"coalesced answers differ from the lone answers")
+    check(st["batches"] < len(hold_q), f"SQ8 graph: nothing coalesced")
+    log(f"phase 10: RAE64,HNSW32,SQ8,Rerank4 over the same graph: 64 "
+        f"clients x 8 holdout queries, QPS {len(hold_q) / wall:.1f}, p50 "
+        f"{st['latency_ms']['p50']} ms, p99 {st['latency_ms']['p99']} ms, "
+        f"{st['batches']} batches; coalesced == alone "
+        f"{len(hold_q) - bad}/{len(hold_q)}; recall@10 {recall:.4f}")
+    return out
+
+
+def phase10_launcher(n: int = 20_000) -> None:
+    """(e) ``python -m repro_torch.launch.serve --n 20000 --dim 256
+    --index-spec RAE64,IVF256,Rerank4`` as a subprocess: exit 0, its
+    recall and latency line."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--n", str(n),
+         "--dim", "256", "--index-spec", "RAE64,IVF256,Rerank4"],
+        capture_output=True, text=True, env=env, timeout=600)
+    dt = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    result = [ln for ln in lines if ln.startswith("[5/5]")]
+    check(proc.returncode == 0 and bool(result),
+          f"launcher exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"phase 10: python -m repro_torch.launch.serve --n {n} --dim 256 "
+        f"--index-spec RAE64,IVF256,Rerank4: exit {proc.returncode} in "
+        f"{dt:.1f} s: {result[0]} | {lines[-1].strip()}")
+
+
+def phase10(device: str) -> dict:
+    """Every part of phase 10; returns its kernels' launch counts."""
+    launches = PathLaunches()
+    t = {}
+    for name, fn in (("engine_1m", lambda: phase10_engine_1m(device,
+                                                             launches)),
+                     ("mutation", lambda: phase10_mutation(device,
+                                                           launches)),
+                     ("tuned", lambda: phase10_tuned(device, launches)),
+                     ("launcher", phase10_launcher)):
+        t0 = time.perf_counter()
+        fn()
+        t[name] = time.perf_counter() - t0
+        free_card()
+    log(f"phase 10: main-path launches {launches.total}; seconds by part "
+        f"{ {k: round(v, 1) for k, v in t.items()} }")
+    for k in ("rae_encode", "l2_topk", "graph_beam", "graph_beam_q",
+              "pq_adc"):
+        check(launches.total[k] > 0, f"phase 10: {k} never launched")
+    return launches.total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -3961,15 +4562,19 @@ def main() -> int:
     kernels.append(run("phase 7", two_tower))
     kernels.append(run("phase 8", llama))
     p9 = run("phase 9", phase9, "cuda")
+    p10 = run("phase 10", phase10, "cuda")
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
     for entry in kernels:
         entry["max_abs_err"] = errs[entry["name"]]
-        # phase 9's paths (baselines, theory, mutation) launch these too
+        # phase 9's paths (baselines, theory, mutation) and phase 10's
+        # (serving, tuning) launch these too
         entry["launches_phase9"] = p9.get(entry["name"], 0)
-        entry["launches"] += entry["launches_phase9"]
+        entry["launches_phase10"] = p10.get(entry["name"], 0)
+        entry["launches"] += (entry["launches_phase9"]
+                              + entry["launches_phase10"])
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
 
     smi = subprocess.run(

@@ -86,6 +86,39 @@ class SearchParams:
                                  f"got {v}")
             object.__setattr__(self, name, snap_knob(v))
 
+    def key(self) -> tuple:
+        """Hashable operating-point token (cache keys, curve JSON)."""
+        return (self.ef_search, self.nprobe, self.rerank_k1)
+
+    def merged(self, override: "SearchParams") -> "SearchParams":
+        """This point with ``override``'s set knobs winning."""
+        return SearchParams(
+            ef_search=override.ef_search if override.ef_search is not None
+            else self.ef_search,
+            nprobe=override.nprobe if override.nprobe is not None
+            else self.nprobe,
+            rerank_k1=override.rerank_k1 if override.rerank_k1 is not None
+            else self.rerank_k1)
+
+    def escalated(self) -> "SearchParams":
+        """One ladder rung up on every set knob — the pass-2 point of
+        per-query escalation. Unset knobs stay unset."""
+        return SearchParams(
+            ef_search=None if self.ef_search is None
+            else next_rung(self.ef_search),
+            nprobe=None if self.nprobe is None else next_rung(self.nprobe),
+            rerank_k1=None if self.rerank_k1 is None
+            else next_rung(self.rerank_k1))
+
+    def to_dict(self) -> dict[str, Optional[int]]:
+        return {"ef_search": self.ef_search, "nprobe": self.nprobe,
+                "rerank_k1": self.rerank_k1}
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "SearchParams":
+        return cls(ef_search=d.get("ef_search"), nprobe=d.get("nprobe"),
+                   rerank_k1=d.get("rerank_k1"))
+
 
 @dataclass
 class SearchResult:

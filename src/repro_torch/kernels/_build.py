@@ -29,6 +29,23 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: ``nvcc`` processes started and libraries loaded in this process: what a
+#: cold path pays once (``analysis.runtime.no_retrace`` reads it)
+_cold_events = 0
+_COLD_LOCK = threading.Lock()
+
+
+def _count_cold() -> None:
+    global _cold_events
+    with _COLD_LOCK:
+        _cold_events += 1
+
+
+def cold_events() -> int:
+    """Kernel builds (``nvcc`` processes) and library loads so far in this
+    process; monotonic, so only differences mean something."""
+    return _cold_events
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -83,6 +100,7 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
         os.close(fd)
         log = open(lib.with_suffix(".log"), "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        _count_cold()
         jobs.append((name, lib, tmp, log,
                      subprocess.Popen(cmd, stdout=log,
                                       stderr=subprocess.STDOUT)))
@@ -103,8 +121,11 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed."""
-    return ctypes.CDLL(str(build((name,))[name]))
+    """The kernel's shared library, built first if needed (once a
+    process: later calls return the loaded library)."""
+    path = build((name,))[name]
+    _count_cold()
+    return ctypes.CDLL(str(path))
 
 
 _LAUNCH_LOCK = threading.Lock()

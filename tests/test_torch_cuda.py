@@ -28,6 +28,8 @@ softmaxes, so it is held within 1e-5 of the largest magnitude, with no
 floor: its outputs average V over up to 70,001 positions and are small,
 and one position dropped or added moves them by far more than that.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -64,6 +66,10 @@ from repro_torch.kernels import topk_merge  # noqa: E402
 from repro_torch.kernels.topk_merge.kernel import topk_merge_cuda  # noqa: E402
 from repro_torch.kernels.topk_merge.ref import topk_merge_ref  # noqa: E402
 from repro_torch.search import hnsw  # noqa: E402
+from repro_torch.analysis.runtime import no_retrace  # noqa: E402
+from repro_torch.serve import SearchEngine  # noqa: E402
+from repro_torch.serve.engine import _Request  # noqa: E402
+from repro_torch.tune import EscalationPolicy  # noqa: E402
 
 # a string condition is evaluated when the test runs, not at import
 needs_card = pytest.mark.skipif("not torch.cuda.is_available()",
@@ -1338,3 +1344,131 @@ def test_mutable_stack_on_card_answers_like_the_cpu(spec, monkeypatch):
     n_clean, calls["n"] = calls["n"], 0
     stacks["cuda"].search(q, 10)
     assert calls["n"] <= n_clean
+
+
+# ---------------------------------------------------------------------------
+# serving on the card: a row's answer never depends on its batch-mates
+# ---------------------------------------------------------------------------
+SERVE_SPECS = ("RAE64,Flat,Rerank4", "RAE64,IVF256,Rerank4",
+               "RAE64,PQ8x8,Rerank4")
+
+
+@pytest.fixture(scope="module")
+def serve_data():
+    """A float corpus (so a reduction's order would show in the bits), 32
+    noisy queries, and one RAE fit shared by the served stacks."""
+    from repro_torch.data import synthetic
+
+    x = synthetic.embedding_corpus(6000, 128, n_clusters=16, intrinsic=32,
+                                   seed=3)
+    rng = np.random.default_rng(4)
+    q = (x[rng.choice(len(x), 32, replace=False)]
+         + 0.05 * rng.standard_normal((32, 128))).astype(np.float32)
+    red = api.make_reducer("rae", 64, steps=200, seed=0, device="cuda")
+    red.fit(x)
+    return x, q, red
+
+
+def _served(spec, serve_data):
+    x, _, red = serve_data
+    ix = api.index_factory(spec, device="cuda")
+    ix.reducer = red
+    return ix.build(x)
+
+
+def _requests(qs, k):
+    return [_Request(q=q, k=k, future=None) for q in qs]
+
+
+@needs_card
+@pytest.mark.parametrize("spec", SERVE_SPECS)
+def test_engine_rows_on_card_equal_their_lone_answers(spec, serve_data):
+    """Every batch size 1-32, padded to its bucket by the engine: each row
+    equals, ids and score bits, the stack's search of that query alone."""
+    _, q, _ = serve_data
+    ix = _served(spec, serve_data)
+    eng = SearchEngine(ix, max_batch=32, cache_size=0)
+    lone = [ix.search(q[i:i + 1], 10) for i in range(len(q))]
+    for size in range(1, 33):
+        for i, r in enumerate(eng._run_batch(10, _requests(q[:size], 10))):
+            np.testing.assert_array_equal(r.indices[0], lone[i].indices[0])
+            assert r.scores.tobytes() == lone[i].scores[:1].tobytes(), \
+                (spec, size, i)
+
+
+@needs_card
+@pytest.mark.parametrize("threshold", [0.02, 1.5])
+def test_engine_escalated_rows_on_card_equal_alone_and_in_batch(threshold,
+                                                                serve_data):
+    """A row escalated alone answers bit for bit as the same row escalated
+    inside its batch (pass 2 padded to the smallest covering bucket)."""
+    from repro_torch.api import SearchParams
+
+    _, q, _ = serve_data
+    ix = _served("RAE64,IVF256,Rerank4", serve_data)
+    eng = SearchEngine(ix, max_batch=32, cache_size=0,
+                       params=SearchParams(nprobe=8),
+                       escalation=EscalationPolicy(delta=3,
+                                                   threshold=threshold))
+    batch = eng._run_batch(10, _requests(q, 10))
+    n_esc = 0
+    for i in range(len(q)):
+        solo = eng._run_batch(10, _requests(q[i:i + 1], 10))[0]
+        assert solo.stats["escalated"] == batch[i].stats["escalated"]
+        n_esc += int(solo.stats["escalated"])
+        np.testing.assert_array_equal(solo.indices, batch[i].indices)
+        assert solo.scores.tobytes() == batch[i].scores.tobytes()
+    if threshold > 1:
+        assert n_esc == len(q)
+
+
+@needs_card
+def test_engine_on_card_pays_no_cold_path_after_warmup(serve_data):
+    """After warmup(), a storm of every batch size and both served k pays
+    no kernel build or library load."""
+    _, q, _ = serve_data
+    for spec in SERVE_SPECS:
+        ix = _served(spec, serve_data)
+        eng = SearchEngine(ix, max_batch=32, cache_size=0).warmup(ks=(5, 10))
+        rng = np.random.default_rng(0)
+        with no_retrace(budget=0, what=f"{spec} storm") as used:
+            for size in rng.integers(1, 33, 24):
+                k = int(rng.choice([5, 10]))
+                eng._run_batch(k, _requests(q[:size], k))
+            assert used() == 0
+
+
+@needs_card
+def test_hot_swap_on_card_under_load_drops_nothing():
+    """Clients query their own rows while a Flat index on the card is
+    swapped for a superset: every reply is the exact self-hit."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(-8, 8, (4096, 32)).astype(np.float32)
+    bigger = np.concatenate([x, rng.integers(-8, 8, (64, 32)).astype(
+        np.float32)])
+    n_clients, reps = 16, 8
+    out = [[None] * reps for _ in range(n_clients)]
+    start = threading.Barrier(n_clients + 1)
+    with SearchEngine(api.FlatIndex(device="cuda").build(x), max_batch=8,
+                      max_wait_ms=2.0, cache_size=0) as eng:
+        def client(i):
+            start.wait()
+            for j in range(reps):
+                out[i][j] = eng.search_one(x[i], 10)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        start.wait()
+        eng.hot_swap(lambda: api.FlatIndex(device="cuda").build(bigger))
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        st = eng.stats()
+    assert st["mutation"]["swaps"] == 1
+    assert st["requests"] == n_clients * reps
+    for i in range(n_clients):
+        for r in out[i]:
+            assert r is not None and r.indices[0, 0] == i
+            assert r.scores[0, 0] == 0.0

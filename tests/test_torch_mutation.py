@@ -1,8 +1,8 @@
 """Live mutation on the port (``repro_torch.api.MutableIndex``, the ``Mut``
 factory prefix, ``search.hnsw.insert_batch``), on the CPU.
 
-The 22 tests of the reference's ``tests/test_mutation.py`` that need no
-serving engine, mirrored on the port, with the same corpus (N, DIM, K =
+The 24 tests of the reference's ``tests/test_mutation.py``, mirrored on
+the port (the last two through ``repro_torch.serve.SearchEngine``), with the same corpus (N, DIM, K =
 200, 16, 10; small random integers cast to float32, so distances are exact
 and self-hit assertions are deterministic):
 
@@ -11,7 +11,9 @@ and self-hit assertions are deterministic):
 * tombstone exactness: a deleted id never surfaces, at every tier;
 * identity: the epoch and the fingerprint move on every mutation, ids are
   stable across a compacting ``rebuild`` (the reference fails this on
-  ``Mut,IVF16``; the port passes it, ``ROADMAP.md`` C8).
+  ``Mut,IVF16``; the port passes it, ``ROADMAP.md`` C8);
+* serving: ``engine.mutate`` is atomic and retires cached answers, and a
+  ``hot_swap`` under concurrent load drops no query.
 
 Then parity with the reference: ``insert_batch`` graphs and the extended
 code payloads bit-equal after the same insert stream, ``Mut`` directories
@@ -19,6 +21,8 @@ loading across packages with equal fingerprints, and a search over a
 mutated index making no more host-to-device copies than one over a clean
 index (the tombstone mask lives on the index's device).
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -40,6 +44,7 @@ from repro_torch.kernels.graph_beam.ref import graph_beam_ref  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import l2_topk_ref  # noqa: E402
 from repro_torch.search import hnsw as hnsw_lib  # noqa: E402
 from repro_torch.search import ivf as ivf_lib  # noqa: E402
+from repro_torch.serve import SearchEngine  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -586,3 +591,58 @@ def test_masked_search_uploads_no_more_than_a_clean_one(spec, corpus,
     r = mutated.search(q, K)
     assert calls["n"] <= n_clean, (calls["n"], n_clean)
     assert not np.isin(r.indices, [5, 6, 7, 100]).any()
+
+
+# ---------------------------------------------------------------------------
+# serving: atomic mutation + zero-downtime swap
+# ---------------------------------------------------------------------------
+def test_engine_mutate_is_atomic_and_retires_cache(corpus):
+    ix = _build("Mut,Flat", corpus)
+    with SearchEngine(ix, max_batch=8, max_wait_ms=2.0,
+                      cache_size=32) as eng:
+        assert eng.search_one(corpus[5], K).indices[0, 0] == 5
+        assert eng.search_one(corpus[5], K).indices[0, 0] == 5  # cached
+        assert eng.mutate(lambda i: i.delete([5])) == 1
+        after = eng.search_one(corpus[5], K)    # same key, new epoch
+        assert 5 not in after.indices
+        ext = eng.mutate(lambda i: i.add(_int_rows(41, 2)))
+        assert np.array_equal(ext, [N, N + 1])  # mutate returns fn's result
+        st = eng.stats()["mutation"]
+        assert st["mutations"] == 2
+        assert st["index"]["epoch"] == 2.0 and st["index"]["deleted"] == 1.0
+
+
+def test_hot_swap_under_concurrent_load_drops_nothing(corpus):
+    """Clients hammer their own rows while the index is swapped for a
+    superset rebuild: every reply must be the exact self-hit (entirely
+    old or entirely new index, never a torn read), none dropped."""
+    flat = api.FlatIndex(device="cpu").build(corpus)
+    bigger = np.concatenate([corpus, _int_rows(43, 16)])
+    n_clients, reps = 12, 6
+    out = [[None] * reps for _ in range(n_clients)]
+    start = threading.Barrier(n_clients + 1)
+
+    def client(i):
+        start.wait()
+        for j in range(reps):
+            out[i][j] = eng.search_one(corpus[i], K)
+
+    with SearchEngine(flat, max_batch=8, max_wait_ms=2.0,
+                      cache_size=0) as eng:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(n_clients)]
+        for t in threads:
+            t.start()
+        start.wait()
+        promoted = eng.hot_swap(
+            lambda: api.FlatIndex(device="cpu").build(bigger), ks=(K,))
+        for t in threads:
+            t.join()
+        assert promoted is eng.index and eng.index.ntotal == N + 16
+        st = eng.stats()
+        assert st["mutation"]["swaps"] == 1
+        assert st["requests"] == n_clients * reps
+    for i in range(n_clients):
+        for r in out[i]:
+            assert r is not None, "a query was dropped during the swap"
+            assert r.indices[0, 0] == i and r.scores[0, 0] == 0.0
