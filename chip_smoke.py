@@ -28,6 +28,9 @@ its embeddings:
 two-tower-retrieval (the user tower's history bag through the hand-written
 ``embedding_bag`` kernel) and llama3.2-1b (prefill, and decode steps whose
 attention is the hand-written ``flash_decode`` kernel over the KV cache).
+Both models train (``models.registry`` train cells, ``launch/train.py``):
+the gradient of every embedding table, the history bag's and the row
+lookups', is the hand-written ``embedding_bag_bwd`` kernel.
 Phases:
 
 1. kernels against their plain PyTorch versions on the card (the scan at
@@ -35,7 +38,9 @@ Phases:
    inputs; the one-launch traversals, float32 and quantized, against the
    loop of plain hops; the ADC scan on tied codes and at every plan
    branch; the merge on both sides of its narrow blocks' width limit, with
-   more pads than C - k and rows all pads);
+   more pads than C - k and rows all pads; the bag's backward on ragged,
+   tied, clipped, all-pad and bag-of-one inputs, over 10M rows and at the
+   LM's tied embedding);
 2. acceptance at the reference's bars on the 20k x 256 corpus: recall@10
    >= 0.9 for the Flat and IVF256 stacks, the Shard8 IVF256 stack within
    0.01 of its twin, ``RAE64,IVF256,PQ8x8,Rerank4`` >= 0.85 at <= 1/8 the
@@ -134,7 +139,25 @@ Phases:
    HTTP on loopback over the IVF256 engine (256 ``POST /search`` from 32
    threads, ``/stats``, ``/healthz``, 400 for a NaN and a wrong-dim query,
    the cache not grown by them); (e) ``python -m
-   repro_torch.launch.serve`` as a subprocess, exit 0.
+   repro_torch.launch.serve`` as a subprocess, exit 0;
+11. training at published widths (``models.registry`` train cells, AdamW):
+   (a) llama3.2-1b train_4k (16 x 2048, vocab 128,256, float32 master
+   weights, bfloat16 compute and moments, per-layer remat) with the batch
+   cut to ``LLAMA_TRAIN_BATCH`` x 4096: the gradients with the kernels
+   equal the plain path's bit for bit, 4 steps with finite losses, no host
+   sync in a step, step time, tokens/s, peak memory beside
+   ``launch/train.py:reckon_bytes``, the idle share; (b) two-tower
+   train_batch (embed 256, MLPs 1024-512-256, bags of 50) with each
+   table's rows cut to 1/``TABLE_CUT`` and B = 65,536 halved until a step
+   fits: gradients bit-equal to the plain path's, two steps from one state
+   bit-identical (params and moments), the loss falling over 8 steps on
+   one batch, step time, examples/s, peak memory, the idle share, and the
+   backward kernel alone at the history bag beside its bound, its plain
+   version and ``F.embedding_bag``'s backward; (c) ``python -m
+   repro_torch.launch.train --scale smoke`` for both archs as
+   subprocesses: 60 steps, a run crashed at step 45 and resumed from step
+   40, the resumed run's final checkpoint equal to the uninterrupted
+   run's, file for file.
 
 ``python3 chip_smoke.py --ab PARENT/src`` runs none of the phases: it
 times ``topk_merge`` (Q = 256 and 1 at C = 320, k = 40; Q = 256 at C =
@@ -147,11 +170,12 @@ and one query), ``l2_topk`` (k = 40 and 2048), ``rae_encode``,
 tree's, in turns (parent, change, change, parent), each in a process of
 its own, on one card.
 
-Every launch counter is set to 0 just before phases 3 to 10 drive their
+Every launch counter is set to 0 just before phases 3 to 11 drive their
 paths and read just after; a kernel of the path that did not launch fails
-the run. Phase 9's and phase 10's launches join the ``kernels`` line
-(``launches``, and ``launches_phase9`` / ``launches_phase10`` for their
-shares). The last lines are a ``kernels`` JSON object, the card's
+the run. Phase 9's, 10's and 11's launches join the ``kernels`` line
+(``launches``, and ``launches_phase9`` / ``launches_phase10`` /
+``launches_phase11`` for their shares; ``embedding_bag_bwd`` runs only in
+phase 11). The last lines are a ``kernels`` JSON object, the card's
 name and power limit, and ``{"ok": true, "device": ...}``. A phase that
 fails is reported and the next one runs; if any failed, the script prints
 no result and exits with code 1. Without a CUDA card it exits with code 2
@@ -376,6 +400,7 @@ def phase_kernels(g: torch.Generator) -> dict[str, float]:
     errs["graph_beam_q"] = max(phase_kernels_graph_beam_q(g),
                                phase_kernels_traversal_q())
     errs["embedding_bag"] = phase_kernels_embedding_bag(g)
+    errs["embedding_bag_bwd"] = phase_kernels_embedding_bag_bwd(g)
     errs["flash_decode"] = phase_kernels_flash_decode(g)
     return errs
 
@@ -666,6 +691,72 @@ def phase_kernels_embedding_bag(g: torch.Generator) -> float:
         f"3), (10, 1, 4, 5), (1M, 256, 4096, 50); float32 and bfloat16; "
         f"mean and sum; lengths 0 and > L, ids outside [0, V)): bit-equal "
         f"to the plain version, max_abs_err {worst:.3e}")
+    return worst
+
+
+def zipf_ids(g: torch.Generator, shape: tuple, v: int) -> torch.Tensor:
+    """Ids drawn with probability 1/rank over ``v`` rows (the train cells'
+    token law): long runs of a few ids."""
+    p = 1.0 / torch.arange(1, v + 1, device="cuda", dtype=torch.float64)
+    n = int(np.prod(shape))
+    return torch.multinomial(p, n, replacement=True, generator=g).to(
+        torch.int32).reshape(shape)
+
+
+def phase_kernels_embedding_bag_bwd(g: torch.Generator) -> float:
+    """The backward kernel against its plain version: ragged bags (lengths
+    past L, empty), tied ids (every slot of a bag one id, and Zipfian ids
+    with runs of hundreds), ids clipped from outside [0, V), all-pad bags,
+    bags of one (the row lookups), mean and sum; at the two-tower's bag
+    (d = 256, L = 50) over 10M rows and at llama3.2-1b's tied embedding
+    (128,256 x 2048, 8192 tokens). Both sum each row's slots in ascending
+    (b, l) from zero: bit-equal."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_bwd_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_bwd_ref
+
+    worst, cases = 0.0, 0
+    shapes = [("ragged", 13, 5, 7, 3), ("d1", 10, 1, 4, 5),
+              ("tied", 97, 24, 33, 37), ("clipped", 50, 96, 64, 8),
+              ("all_pad", 40, 16, 9, 6), ("bag_of_one", 1000, 256, 4096, 1),
+              ("two_tower_10M", 10_000_000, 256, 4096, 50),
+              ("llama_tied_embed", 128_256, 2048, 8192, 1)]
+    for name, v, d, b, l in shapes:
+        grad = torch.randn(b, d, device="cuda", generator=g)
+        ids = torch.randint(0, v, (b, l), device="cuda", generator=g,
+                            dtype=torch.int32)
+        lens = torch.randint(1, l + 1, (b,), device="cuda", generator=g,
+                             dtype=torch.int32)
+        if name == "ragged":
+            lens[0], lens[-1] = 0, l + 7
+        elif name == "tied":
+            ids[: b // 2] = ids[: b // 2, :1]          # one id a bag
+            ids[b // 2:] = zipf_ids(g, (b - b // 2, l), v)
+        elif name == "clipped":
+            ids = torch.randint(-v, 2 * v, (b, l), device="cuda",
+                                generator=g, dtype=torch.int32)
+        elif name == "all_pad":
+            lens.zero_()
+        elif name == "llama_tied_embed":
+            ids = zipf_ids(g, (b, 1), v)
+        if l == 1:
+            lens.fill_(1)
+        for mode in ("mean", "sum") if l > 1 else ("sum",):
+            got = embedding_bag_bwd_cuda(grad, ids, lens, mode, v)
+            sync()
+            want = embedding_bag_bwd_ref(grad, ids, lens, mode, v)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            cases += 1
+            check(torch.equal(got, want),
+                  f"embedding_bag_bwd {name} V={v} d={d} B={b} L={l} {mode}:"
+                  f" kernel != plain (max_abs_err {err})")
+            if name == "all_pad":
+                check(not bool(got.any()), "all-pad bags touched a row")
+            del got, want
+        free_card()
+    names = ", ".join(s[0] for s in shapes)
+    log(f"phase 1: embedding_bag_bwd {cases} cases ({names}; mean and sum): "
+        f"bit-equal to the plain version, max_abs_err {worst:.3e}")
     return worst
 
 
@@ -2575,20 +2666,25 @@ def hop_q_time(g: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def plain_kernels():
-    """The model paths with ``embedding_bag`` and ``flash_decode`` replaced
-    by their plain versions (the comparison runs, never the main path)."""
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    """The model paths with ``embedding_bag``, its backward and
+    ``flash_decode`` replaced by their plain versions (the comparison runs,
+    never the main path)."""
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
+                                                       embedding_bag_ref)
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
-    from repro_torch.models import common
     from repro_torch.models.transformer import attention
 
-    saved = common.embedding_bag_op, attention.flash_decode
-    common.embedding_bag_op = embedding_bag_ref
+    saved = (bag_ops.embedding_bag, bag_ops.embedding_bag_bwd,
+             attention.flash_decode)
+    bag_ops.embedding_bag = embedding_bag_ref
+    bag_ops.embedding_bag_bwd = embedding_bag_bwd_ref
     attention.flash_decode = flash_decode_ref
     try:
         yield
     finally:
-        common.embedding_bag_op, attention.flash_decode = saved
+        (bag_ops.embedding_bag, bag_ops.embedding_bag_bwd,
+         attention.flash_decode) = saved
 
 
 @contextlib.contextmanager
@@ -4487,6 +4583,475 @@ def phase10(device: str) -> dict:
     return launches.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training of llama3.2-1b and two-tower-retrieval
+# ---------------------------------------------------------------------------
+#: llama3.2-1b train_4k's batch, cut from 256 (PERF.md section 4): B = 2
+#: peaked at 34.98 GB on the card, so 4 fits
+LLAMA_TRAIN_BATCH = 4
+#: two-tower train_batch: each table's rows cut to a quarter
+TABLE_CUT = 4
+TRAIN_BATCH_TT = 65_536
+
+
+def grads_of(loss_fn, params, *args):
+    """(loss, {path: grad}) of ``loss_fn(params, *args)`` under autograd."""
+    from repro_torch.models.common import value_and_grad
+    from repro_torch.pytree import flatten_with_path
+
+    (loss, _), grads = value_and_grad(loss_fn, params, *args)
+    return loss, dict(flatten_with_path(grads))
+
+
+def same_grads(a: dict, b: dict) -> tuple[bool, list]:
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    return not bad, bad
+
+
+def train_counters():
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_bwd_cuda, embedding_bag_cuda)
+
+    return {"embedding_bag": embedding_bag_cuda,
+            "embedding_bag_bwd": embedding_bag_bwd_cuda}
+
+
+def traced_step(fn):
+    """``fn()`` under ``torch.profiler``: (its result, the card's busy ms in
+    it, the kernel and copy intervals merged). Logs the six kernels that
+    took the most card time in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = busy_us(events) * 1e-3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("  card time by kernel: " + "; ".join(
+        f"{name[:70]} {us * 1e-3:.1f} ms ({us * 1e-3 / busy:.3f})"
+        for name, us in top))
+    return out, busy
+
+
+def train_steps(cell, state: dict, batch, n: int):
+    """``n`` steps of the train cell on one batch, the main path, from
+    ``state`` (``params``, ``opt_state``), which it replaces step by step
+    (so the caller holds no other reference to the old state). The first
+    step, the warm-up, runs under ``torch.profiler`` (the card's busy time)
+    and the sync debug mode "error"; the others are timed on the host
+    clock after a sync. Returns (losses, seconds of the timed steps, the
+    traced step's busy ms, the last metrics)."""
+    losses, lat, busy = [], [], 0.0
+
+    def step():
+        state["params"], state["opt_state"], m = cell.fn(
+            state["params"], state["opt_state"], batch)
+        return m
+
+    for i in range(n):
+        t0 = time.perf_counter()
+        if i == 0:
+            m, busy = traced_step(lambda: no_host_sync(step))
+        else:
+            m = step()
+        sync()
+        if i:
+            lat.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    return losses, lat, busy, m
+
+
+def phase11_llama(device: str) -> dict:
+    """(a) llama3.2-1b train_4k at its published widths (16 x 2048, 32 / 8
+    heads, d_ff 8192, vocab 128,256; float32 master weights, bfloat16
+    compute and moments, per-layer remat) with the batch cut to
+    ``LLAMA_TRAIN_BATCH`` x 4096 tokens, through ``build_cell``: the
+    gradients with the kernels equal the plain path's bit for bit (the
+    embedding's backward is the only kernel here), 4 steps (a warm-up, 3
+    timed), finite losses, no host sync in a step, peak memory beside the
+    reckoning, the card's idle share."""
+    from repro_torch.configs import get_shapes
+    from repro_torch.launch.train import reckon_bytes
+    from repro_torch.models.registry import build_cell
+    from repro_torch.models.transformer import model as tm
+
+    free_card()
+    train = [c for c in get_shapes(LLAMA) if c.kind == "train"][0]
+    cell = build_cell(LLAMA, train.replace(global_batch=LLAMA_TRAIN_BATCH),
+                      device)
+    cfg = cell.cfg
+    b, s = cell.cell.global_batch, cell.cell.seq_len
+    need = reckon_bytes(cfg, "lm", cell.cell)
+    t0 = time.perf_counter()
+    params = cell.init(0)
+    opt_state = cell.init_opt(params)
+    (batch,) = cell.make_inputs(0)
+    sync()
+    log(f"phase 11 (a): {LLAMA} train_4k cut to B={b} (from "
+        f"{train.global_batch}) x S={s}: {cfg.n_layers} x {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, params {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, moments {cfg.moment_dtype}, remat "
+        f"{cfg.remat}; weights, moments and batch ready in "
+        f"{time.perf_counter() - t0:.2f} s; reckoned peak "
+        f"{need['peak'] / 1e9:.2f} GB")
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    loss_k, g_k = grads_of(tm.loss_fn, params, batch, cfg)
+    sync()
+    bwd_grad = counters["embedding_bag_bwd"].launches
+    with plain_kernels():
+        loss_p, g_p = grads_of(tm.loss_fn, params, batch, cfg)
+    same, bad = same_grads(g_k, g_p)
+    log(f"phase 11 (a): loss {float(loss_k):.6f} (plain path "
+        f"{float(loss_p):.6f}); grads with the kernels == plain path, bit "
+        f"for bit: {same} ({len(g_k)} leaves; embedding_bag_bwd launched "
+        f"{bwd_grad} in the gradient)")
+    check(same and bool(torch.equal(loss_k, loss_p)),
+          f"llama grads: kernel path != plain path at {bad[:4]}")
+    del g_k, g_p
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    # the main path: a warm-up, 3 timed
+    state = {"params": params, "opt_state": opt_state}
+    del params, opt_state
+    losses, lat, dev, m = train_steps(cell, state, batch, 4)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"llama losses not finite: {losses}")
+    check(launches["embedding_bag_bwd"] == 4,
+          f"llama: embedding_bag_bwd launched {launches} in 4 steps")
+    med = float(np.median(lat)) * 1e3
+    log(f"phase 11 (a): 4 steps, losses {[round(x, 5) for x in losses]} "
+        f"(lr {float(m['lr']):.3e}: warmup), step {spread(lat)} after a "
+        f"warm-up, {b * s / med * 1e3:.0f} tokens/s; no host sync in a step "
+        f"(sync debug mode \"error\"); peak memory {peak:.2f} GB (reckoned "
+        f"{need['peak'] / 1e9:.2f}); the card busy {dev:.1f} ms in the "
+        f"warm-up step (torch.profiler, kernels merged), idle "
+        f"{1 - dev / med:.3f} of the median step; embedding_bag_bwd "
+        f"launches a step {launches['embedding_bag_bwd'] / 4:.0f}")
+    out = {"launches": launches, "step_ms": med, "peak_gb": peak,
+           "tokens_s": b * s / med * 1e3, "idle": 1 - dev / med,
+           "lookup": (b * s, cfg.d_model, tm.padded_vocab(cfg))}
+    del state, batch, cell
+    free_card()
+    return out
+
+
+def quarter_tables(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, tables=tuple(
+        dataclasses.replace(t, vocab=t.vocab // TABLE_CUT)
+        for t in cfg.tables))
+
+
+def to_host(tree):
+    from repro_torch.pytree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def same_tree(a, b_host) -> tuple[bool, int]:
+    """Leaves of ``a`` (on the card) equal to ``b_host``'s, bit for bit:
+    (all equal, leaves compared)."""
+    from repro_torch.pytree import flatten_with_path
+
+    fa, fb = flatten_with_path(a), dict(flatten_with_path(b_host))
+    ok = all(torch.equal(x.detach().cpu(), fb[p]) for p, x in fa)
+    return ok, len(fa)
+
+
+def phase11_two_tower(device: str) -> dict:
+    """(b) two-tower train_batch at its published widths (embed 256, MLPs
+    1024-512-256, history bags of 50), each table's rows cut to a quarter
+    (float32 tables, dense gradients and float32 moments at full rows
+    would be about 102 GB), B = 65,536 halved until a step fits: the
+    gradients with the kernels equal the plain path's bit for bit, two
+    steps from one state give the same bits (params and moments), the loss
+    falls over 8 steps on one repeated batch; step time, examples/s, peak
+    memory, idle share; and the backward kernel alone at the bag's shape."""
+    from repro_torch.configs import get_arch, get_shapes
+    from repro_torch.launch.train import reckon_bytes
+    from repro_torch.models.recsys import two_tower as tt
+    from repro_torch.models.registry import build_cell_with
+
+    free_card()
+    cfg = quarter_tables(get_arch(TWO_TOWER)[0])
+    train = [c for c in get_shapes(TWO_TOWER) if c.kind == "train"][0]
+    b = TRAIN_BATCH_TT
+    cell = build_cell_with(cfg, "recsys", TWO_TOWER,
+                           train.replace(global_batch=b), device)
+    t0 = time.perf_counter()
+    params = cell.init(0)
+    opt_state = cell.init_opt(params)
+    sync()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"phase 11 (b): {TWO_TOWER} train_batch, tables "
+        + ", ".join(f"{t.name} {params['table_' + t.name].shape[0]}x{t.dim}"
+                    for t in cfg.tables)
+        + f" (rows cut to 1/{TABLE_CUT}), MLP {cfg.mlp_dims}: "
+          f"{nbytes / 1e9:.3f} GB of float32 weights, as much again in "
+          f"each moment; ready in {time.perf_counter() - t0:.2f} s")
+    while True:                 # the largest batch whose step fits
+        cell = build_cell_with(cfg, "recsys", TWO_TOWER,
+                               train.replace(global_batch=b), device)
+        (batch,) = cell.make_inputs(0)
+        fits = True
+        try:
+            cell.fn(params, opt_state, batch)
+            sync()
+        except torch.OutOfMemoryError:
+            fits = False
+        free_card()
+        if fits:
+            break
+        log(f"phase 11 (b): a step at B={b} runs out of memory; halving")
+        b //= 2
+        check(b >= 1024, "no two-tower batch fits")
+    need = reckon_bytes(cfg, "recsys", cell.cell)
+    counters = train_counters()
+    for c in counters.values():
+        c.launches = 0
+    loss_k, g_k = grads_of(tt.loss_fn, params, batch, cfg)
+    sync()
+    bwd_grad = counters["embedding_bag_bwd"].launches
+    with plain_kernels():
+        loss_p, g_p = grads_of(tt.loss_fn, params, batch, cfg)
+    same, bad = same_grads(g_k, g_p)
+    log(f"phase 11 (b): B={b} (from {train.global_batch}); loss "
+        f"{float(loss_k):.6f} (plain {float(loss_p):.6f}); grads with the "
+        f"kernels == plain path, bit for bit: {same} ({len(g_k)} leaves; "
+        f"embedding_bag_bwd launched {bwd_grad} in the gradient)")
+    check(same and bool(torch.equal(loss_k, loss_p)),
+          f"two-tower grads: kernel path != plain path at {bad[:4]}")
+    del g_k, g_p
+    free_card()
+
+    # two steps from the same state: the same bits
+    p1, s1, _ = cell.fn(params, opt_state, batch)
+    first = to_host((p1, s1.m, s1.v))
+    del p1, s1
+    free_card()
+    p2, s2, _ = cell.fn(params, opt_state, batch)
+    det, n_leaves = same_tree((p2, s2.m, s2.v), first)
+    del p2, s2, first
+    free_card()
+    log(f"phase 11 (b): two steps from one state give the same bits "
+        f"(params and moments, {n_leaves} leaves): {det}")
+    check(det, "two-tower: two steps from one state differ")
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    # the main path: 8 steps on one batch
+    state = {"params": params, "opt_state": opt_state}
+    del params, opt_state
+    losses, lat, dev, _ = train_steps(cell, state, batch, 8)
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"two-tower losses over 8 steps: {losses}")
+    check(launches == {"embedding_bag": 8, "embedding_bag_bwd": 24},
+          f"two-tower: launches {launches} in 8 steps")
+    med = float(np.median(lat)) * 1e3
+    log(f"phase 11 (b): 8 steps on one batch, losses "
+        f"{[round(x, 5) for x in losses]}; step {spread(lat)} after a "
+        f"warm-up, {b / med * 1e3:.0f} examples/s; no host sync in a step; "
+        f"peak memory {peak:.2f} GB (reckoned {need['peak'] / 1e9:.2f}); "
+        f"the card busy {dev:.2f} ms in the warm-up step (torch.profiler), "
+        f"idle {1 - dev / med:.3f} of the median step; launches a step: "
+        f"embedding_bag 1, embedding_bag_bwd 3")
+    entry = embedding_bag_bwd_time(state["params"]["table_hist_item"],
+                                   batch)
+    out = {"launches": launches, "step_ms": med, "peak_gb": peak,
+           "batch": b, "examples_s": b / med * 1e3, "idle": 1 - dev / med,
+           "entry": entry}
+    del state, batch, cell
+    free_card()
+    return out
+
+
+def embedding_bag_bwd_time(table: torch.Tensor, batch: dict) -> dict:
+    """The backward kernel at the two-tower train step's history bag (B
+    bags of L = 50, the hist_item table's rows, d = 256, mean): the kernel
+    alone (the slots sorted and the output zeroed beforehand), the whole
+    wrapper (zero fill, sort, kernel), its plain version, and the library's
+    gradient of ``F.embedding_bag`` over the same live ids with offsets
+    (autograd's backward alone), beside the bound: the grad rows, ids and
+    lengths read once, each touched row written once (bytes); the zero fill
+    of [V, d] counted apart."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
+                                                       sorted_slots)
+
+    ids, lens = batch["hist"], batch["hist_len"]
+    v, d = table.shape
+    b, l = ids.shape
+    grad = torch.randn(b, d, device=table.device,
+                       generator=torch.Generator("cuda").manual_seed(11))
+    keys, slots = sorted_slots(ids, lens, v)
+    out = torch.zeros((v, d), device=table.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = bag_kernel._lib()
+
+    def kernel_alone():
+        check(lib.embedding_bag_bwd_launch(
+            grad.data_ptr(), lens.data_ptr(), keys.data_ptr(),
+            slots.data_ptr(), out.data_ptr(), b * l, l, v, d, 1,
+            stream) == 0, "embedding_bag_bwd launch failed")
+
+    kernel_alone()
+    check(torch.equal(out, bag_kernel.embedding_bag_bwd_cuda(
+        grad, ids, lens, "mean", v)), "kernel alone != wrapper")
+    live = torch.arange(l, device=ids.device)[None, :] < lens[:, None]
+    flat = ids.clamp(0, v - 1)[live].long()
+    offsets = torch.cumsum(lens.long(), 0) - lens.long()
+    tbl = table.detach().requires_grad_(True)
+    fwd = F.embedding_bag(flat, tbl, offsets, mode="mean")
+
+    def library():
+        return torch.autograd.grad(fwd, tbl, grad, retain_graph=True)[0]
+
+    lib_err, _ = max_rel_err(library(), out)
+    check(lib_err <= 1e-5 * max(1.0, float(out.abs().max())),
+          f"F.embedding_bag's gradient is another function (err {lib_err})")
+    ms, held_k = device_ms(kernel_alone, reps=20)
+    wrapper, held_w = device_ms(lambda: bag_kernel.embedding_bag_bwd_cuda(
+        grad, ids, lens, "mean", v), reps=10)
+    plain, held_p = device_ms(lambda: embedding_bag_bwd_ref(
+        grad, ids, lens, "mean", v), reps=3)
+    lib_ms, held_l = device_ms(library, reps=10)
+    zero_ms, _ = device_ms(lambda: torch.zeros((v, d), device=table.device),
+                           reps=10)
+    n_live = int(live.sum())
+    touched = int(torch.unique(keys[:n_live]).numel())
+    b_ms, b_by = bound(4.0 * b * d + 4.0 * b * l + 4.0 * b
+                       + 4.0 * touched * d, float(n_live * d * 2))
+    fill_ms, _ = bound(4.0 * v * d, 0.0)
+    log(f"phase 11 (b): embedding_bag_bwd B={b} L={l} d={d} over {v} rows, "
+        f"{n_live} live slots, {touched} rows touched (device time, card "
+        f"held busy while enqueuing: {held_k}, {held_w}, {held_p}, "
+        f"{held_l}): kernel {ms:.4f} ms, wrapper (zero fill + sort + "
+        f"kernel) {wrapper:.4f} ms, zero fill alone {zero_ms:.4f} ms, plain "
+        f"{plain:.4f} ms, F.embedding_bag's backward {lib_ms:.4f} ms (|diff| "
+        f"{lib_err:.2e}); bound {b_ms:.4f} ms ({b_by}), the zero fill's "
+        f"{fill_ms:.4f} ms apart")
+    del out, tbl, fwd
+    return {"name": "embedding_bag_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "src/repro/kernels/embedding_bag/kernel.py:44",
+            "replaces_note": "no Pallas kernel: the gradient of the bag, "
+                             "XLA's scatter-add in the reference",
+            "ms": ms, "wrapper_ms": wrapper, "zero_fill_ms": zero_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "zero_fill_bound_ms": fill_ms, "library_ms": lib_ms}
+
+
+def phase11_launcher(device: str, steps: int = 60, save_every: int = 20,
+                     fail_at: int = 45) -> None:
+    """(c) ``python -m repro_torch.launch.train --scale smoke`` for both
+    archs as subprocesses on the card: an uninterrupted run of ``steps``
+    steps, a run crashed at ``fail_at`` (the supervisor's injected
+    failure), and its resumption from the last checkpoint; the resumed
+    run's final checkpoint equals the uninterrupted run's, file for
+    file."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    # four runs share the host's cores at once: one compute thread each
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def start(arch: str, ckdir: str, fail: bool):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--scale", "smoke", "--steps", str(steps),
+               "--save-every", str(save_every), "--checkpoint-dir", ckdir,
+               "--device", device]
+        if fail:
+            cmd += ["--fail-at-step", str(fail_at)]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env)
+
+    def finish(proc) -> tuple[int, str, str]:
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        return proc.returncode, out, err
+
+    archs = (TWO_TOWER, LLAMA)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {a: (os.path.join(tmp, f"{i}-whole"),
+                    os.path.join(tmp, f"{i}-crash"))
+                for i, a in enumerate(archs)}
+        procs = {(a, kind): start(a, dirs[a][kind == "crash"],
+                                  kind == "crash")
+                 for a in archs for kind in ("whole", "crash")}
+        done = {k: finish(p) for k, p in procs.items()}
+        resumed = {a: finish(start(a, dirs[a][1], False)) for a in archs}
+        for a in archs:
+            rc_w, out_w, err_w = done[(a, "whole")]
+            rc_c, out_c, err_c = done[(a, "crash")]
+            rc_r, out_r, err_r = resumed[a]
+            check(rc_w == 0, f"{a} uninterrupted run: exit {rc_w}: "
+                             f"{err_w[-2000:]}")
+            check(rc_c == 3 and f"injected failure at step {fail_at}"
+                  in out_c, f"{a} crash run: exit {rc_c}: {err_c[-2000:]}")
+            check(rc_r == 0 and f"at step {fail_at // save_every * save_every}"
+                  in out_r, f"{a} resumed run: exit {rc_r}: {err_r[-2000:]}")
+            final = f"step_{steps:08d}"
+            a_dir = os.path.join(dirs[a][0], final)
+            b_dir = os.path.join(dirs[a][1], final)
+            names = sorted(os.listdir(a_dir))
+            same = names == sorted(os.listdir(b_dir)) and all(
+                open(os.path.join(a_dir, n), "rb").read()
+                == open(os.path.join(b_dir, n), "rb").read() for n in names)
+            log(f"phase 11 (c): python -m repro_torch.launch.train --arch "
+                f"{a} --scale smoke --steps {steps} --save-every "
+                f"{save_every}: exit {rc_w}; crashed at {fail_at}: exit "
+                f"{rc_c}; resumed: exit {rc_r} ({out_r.splitlines()[0]}); "
+                f"final checkpoint == the uninterrupted run's, file for file "
+                f"({len(names)} files): {same} | "
+                f"{out_w.strip().splitlines()[-1]}")
+            check(same, f"{a}: the resumed run's state differs")
+    log(f"phase 11 (c): 6 launcher runs in {time.perf_counter() - t0:.1f} s")
+
+
+def phase11(device: str) -> dict:
+    """Every part of phase 11; returns its kernels' main-path launch
+    counts and the backward kernel's entry of the ``kernels`` line."""
+    t = {}
+    t0 = time.perf_counter()
+    lm = phase11_llama(device)
+    t["llama"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tt_out = phase11_two_tower(device)
+    t["two_tower"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase11_launcher(device)
+    t["launcher"] = time.perf_counter() - t0
+    launches = {k: lm["launches"][k] + tt_out["launches"][k]
+                for k in lm["launches"]}
+    log(f"phase 11: main-path launches {launches}; seconds by part "
+        f"{ {k: round(v, 1) for k, v in t.items()} }")
+    for k in ("embedding_bag", "embedding_bag_bwd"):
+        check(launches[k] > 0, f"phase 11: {k} never launched")
+    return {"launches": launches, "entry": tt_out["entry"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is "
@@ -4500,7 +5065,7 @@ def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     libs = _build.build()
-    log(f"build: {', '.join(p.name for p in libs.values())} in "
+    log(f"build: {', '.join(sorted({p.name for p in libs.values()}))} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, in parallel)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
@@ -4563,18 +5128,24 @@ def main() -> int:
     kernels.append(run("phase 8", llama))
     p9 = run("phase 9", phase9, "cuda")
     p10 = run("phase 10", phase10, "cuda")
+    p11 = run("phase 11", phase11, "cuda")
     if failures:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failures),
               file=sys.stderr)
         return 1
+    entry = p11["entry"]
+    entry["launches"] = 0          # its launches are all phase 11's
+    kernels.append(entry)
     for entry in kernels:
         entry["max_abs_err"] = errs[entry["name"]]
-        # phase 9's paths (baselines, theory, mutation) and phase 10's
-        # (serving, tuning) launch these too
+        # phase 9's paths (baselines, theory, mutation), phase 10's
+        # (serving, tuning) and phase 11's (training) launch these too
         entry["launches_phase9"] = p9.get(entry["name"], 0)
         entry["launches_phase10"] = p10.get(entry["name"], 0)
+        entry["launches_phase11"] = p11["launches"].get(entry["name"], 0)
         entry["launches"] += (entry["launches_phase9"]
-                              + entry["launches_phase10"])
+                              + entry["launches_phase10"]
+                              + entry["launches_phase11"])
     log(f"all phases ok in {time.perf_counter() - t_all:.2f} s")
 
     smi = subprocess.run(

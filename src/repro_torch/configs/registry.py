@@ -1,8 +1,9 @@
 """Arch registry: arch id -> (config, family), and its shape cells.
 
-Only the architectures whose serving paths the port runs are here; every
-other arch id of the reference's registry raises, naming the ROADMAP.md
-item that ports it."""
+Only the architectures the port runs are here, and the paper's own RAE
+configuration (``rae_paper``, family ``rae``: no shape cells, and kept out
+of ``ARCH_IDS`` as the reference keeps it); every other arch id of the
+reference's registry raises, naming the ROADMAP.md item that ports it."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,7 @@ from .shapes import shapes_for_family
 _ARCH_MODULES = {
     "llama3.2-1b": "llama3_2_1b",
     "two-tower-retrieval": "two_tower_retrieval",
+    "rae_paper": "rae_paper",
 }
 
 #: arch ids of the reference's registry that the port does not run yet
@@ -28,7 +30,7 @@ _NOT_PORTED = {
     "mind": "the mind recsys model (ROADMAP.md queue A item 15)",
 }
 
-ARCH_IDS = tuple(_ARCH_MODULES)
+ARCH_IDS = tuple(k for k in _ARCH_MODULES if k != "rae_paper")
 
 
 def get_arch(arch_id: str) -> tuple[Any, str]:
@@ -45,4 +47,6 @@ def get_arch(arch_id: str) -> tuple[Any, str]:
 
 def get_shapes(arch_id: str) -> tuple[ShapeCell, ...]:
     _, family = get_arch(arch_id)
+    if family == "rae":
+        return ()
     return shapes_for_family(family)

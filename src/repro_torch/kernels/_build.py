@@ -24,7 +24,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 KERNELS = ("rae_encode", "l2_topk", "graph_beam", "topk_merge", "pq_adc",
-           "graph_beam_q", "embedding_bag", "flash_decode")
+           "graph_beam_q", "embedding_bag", "flash_decode",
+           "embedding_bag_bwd")
+#: kernels that live in another kernel's source (one library for both)
+_SOURCE = {"embedding_bag_bwd": "embedding_bag"}
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,10 +64,15 @@ def _nvcc() -> str:
     return path
 
 
+def source_of(name: str) -> str:
+    """The ``csrc/<source>.cu`` a kernel is built from."""
+    return _SOURCE.get(name, name)
+
+
 def sources(name: str) -> list[Path]:
-    """``csrc/<name>.cu`` and every header it includes with quotes, read
-    recursively (each once)."""
-    out, todo = [], [CSRC / f"{name}.cu"]
+    """The kernel's ``csrc/<source>.cu`` and every header it includes with
+    quotes, read recursively (each once)."""
+    out, todo = [], [CSRC / f"{source_of(name)}.cu"]
     while todo:
         path = todo.pop(0)
         if path in out:
@@ -82,7 +90,7 @@ def library_path(name: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for path in sources(name):
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{source_of(name)}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
@@ -92,14 +100,16 @@ def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
     Raises with the log when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {n: library_path(n) for n in names}
-    jobs = []
+    jobs, started = [], set()
     for name, lib in out.items():
-        if lib.exists():
+        if lib.exists() or lib in started:
             continue
+        started.add(lib)
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
         log = open(lib.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               str(CSRC / f"{source_of(name)}.cu")]
         _count_cold()
         jobs.append((name, lib, tmp, log,
                      subprocess.Popen(cmd, stdout=log,

@@ -1,3 +1,3 @@
-from .ops import embedding_bag
+from .ops import embedding_bag, embedding_bag_bwd
 
-__all__ = ["embedding_bag"]
+__all__ = ["embedding_bag", "embedding_bag_bwd"]

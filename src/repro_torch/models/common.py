@@ -4,13 +4,18 @@ The reference's ``models/common.py`` on one device: its ``MeshCtx`` and
 ``shard_map`` branches (row-sharded tables, sequence-parallel boundaries)
 need a mesh of several devices and have no counterpart here, so each
 function is the reference's single-device branch. The bag reduction goes
-through the hand-written ``embedding_bag`` kernel on the card.
+through the hand-written ``embedding_bag`` kernel on the card. Both
+lookups are differentiable in the table: their gradient is the
+``embedding_bag_bwd`` kernel (``kernels/embedding_bag/ops.py``), which sums
+each row's gradient in one fixed order where autograd's ``index_select``
+backward would scatter with atomics.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.embedding_bag import embedding_bag as embedding_bag_op
+from ..kernels.embedding_bag import ops as bag_ops
+from ..pytree import map_with_path
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -26,6 +31,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (y * scale.float()).to(x.dtype)
 
 
+def value_and_grad(loss_fn, params, *args):
+    """``((loss, metrics), grads)`` of ``loss_fn(params, *args) -> (loss,
+    metrics)``, as ``jax.value_and_grad(..., has_aux=True)`` gives them:
+    the gradient of every leaf of ``params``, a tree like it; loss and
+    metrics detached."""
+    tracked = []
+
+    def leaf(path, p):
+        t = p.detach().requires_grad_(True)
+        tracked.append((path, t))
+        return t
+
+    loss, metrics = loss_fn(map_with_path(leaf, params), *args)
+    gs = torch.autograd.grad(loss, [t for _, t in tracked])
+    by_path = {path: g for (path, _), g in zip(tracked, gs)}
+    return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
+            map_with_path(lambda path, _: by_path[path], params))
+
+
 def pad_to_multiple(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
 
@@ -36,7 +60,7 @@ def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     ``[0, V-1]`` as the reference's lookup clips them (``mode="clip"``:
     hash collisions fold into the last row instead of reading a fill)."""
     idx = ids.long().clamp(0, table.shape[0] - 1)
-    rows = table.index_select(0, idx.reshape(-1))
+    rows = bag_ops.embedding_lookup(table, idx.reshape(-1))
     return rows.reshape(*ids.shape, table.shape[1]).to(compute_dtype)
 
 
@@ -54,4 +78,5 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     in bfloat16 the port's bag is the better rounded of the two."""
     if mode not in ("sum", "mean"):
         raise ValueError(mode)
-    return embedding_bag_op(table, ids, lengths, mode).to(compute_dtype)
+    return bag_ops.embedding_bag_autograd(table, ids, lengths, mode).to(
+        compute_dtype)

@@ -1,9 +1,10 @@
-"""Shared recsys building blocks: embedding tables and MLP towers.
+"""Shared recsys building blocks: embedding tables, MLP towers, losses.
 
-The reference's ``models/recsys/common.py`` for its serving paths, on one
-device: tables are whole on the card, looked up through
-``models.common``. The losses are training and wait (ROADMAP.md queue A
-item 15).
+The reference's ``models/recsys/common.py`` on one device: tables are
+whole on the card, looked up through ``models.common`` (whose lookups are
+differentiable through the ``embedding_bag_bwd`` kernel). The in-batch
+softmax drops the reference's ``ctx.constrain`` of the logits: one card
+holds the whole ``[B, B]`` matrix.
 """
 from __future__ import annotations
 
@@ -58,6 +59,25 @@ def bag_lookup(params, name: str, ids: torch.Tensor, lengths: torch.Tensor,
                ) -> torch.Tensor:
     return embedding_bag(params[f"table_{name}"], ids, lengths, mode=mode,
                          compute_dtype=compute_dtype)
+
+
+def bce_loss(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of logits, in float32 (the stable form)."""
+    logit = logit.float()
+    return torch.mean(torch.clamp(logit, min=0) - logit * label
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
+def in_batch_softmax_loss(u: torch.Tensor, v: torch.Tensor,
+                          temp: float = 0.05) -> torch.Tensor:
+    """Sampled softmax with in-batch negatives: ``diag(U V^T)`` are the
+    positives. Logits ``[B, B]`` and positives in float32, divided by
+    ``temp`` as the reference divides them."""
+    t = torch.full((), temp, dtype=torch.float32, device=u.device)
+    logits = (u @ v.T).float() / t
+    lse = torch.logsumexp(logits, dim=-1)
+    pos = torch.einsum("bd,bd->b", u.float(), v.float()) / t
+    return torch.mean(lse - pos)
 
 
 def l2norm(x: torch.Tensor) -> torch.Tensor:

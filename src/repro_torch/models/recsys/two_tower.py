@@ -1,4 +1,4 @@
-"""Two-tower retrieval (Yi et al., RecSys'19), serving.
+"""Two-tower retrieval (Yi et al., RecSys'19) with in-batch sampled softmax.
 
 User tower: user embedding + history EmbeddingBag -> MLP -> L2-norm.
 Item tower: item embedding -> MLP -> L2-norm. ``serve`` scores (user, item)
@@ -8,8 +8,9 @@ candidate list, whose top-100 ``models.registry`` takes with
 embeddings a retrieval index over them holds: the paper's RAE slots in
 there (encode both sides, scan in R^m). The reference's
 ``models/recsys/two_tower.py`` on one device; the history bag runs through
-the hand-written ``embedding_bag`` kernel on the card. Training (in-batch
-softmax) waits (ROADMAP.md queue A item 15).
+the hand-written ``embedding_bag`` kernel on the card, and in training the
+gradients of the three tables through the ``embedding_bag_bwd`` kernel.
+``loss_fn`` trains with in-batch negatives.
 """
 from __future__ import annotations
 
@@ -55,6 +56,14 @@ def item_tower(params, item_ids: torch.Tensor, cfg: RecsysConfig
     ie = rc.lookup(params, "item", item_ids, cdt)
     x = rc.apply_mlp(params, "item_mlp", ie, len(cfg.mlp_dims))
     return rc.l2norm(x.float())
+
+
+def loss_fn(params, batch, cfg: RecsysConfig):
+    """In-batch softmax over the batch's (user, item) pairs: ``(loss,
+    {})``."""
+    u = user_tower(params, batch, cfg)
+    v = item_tower(params, batch["item"], cfg)
+    return rc.in_batch_softmax_loss(u, v), {}
 
 
 def serve(params, batch, cfg: RecsysConfig) -> torch.Tensor:

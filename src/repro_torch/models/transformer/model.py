@@ -1,11 +1,20 @@
 """Decoder-only transformer LM, dense family: GQA, RoPE, SwiGLU, prefill
 and KV-cache decode, on one device.
 
-The reference's ``models/transformer/model.py`` for serving, without its
-mesh (sequence-parallel residual stream, tensor-parallel projections, the
-sequence-sharded decode cache) and without its training step. Parameters
-keep the reference's stacked ``[L, ...]`` layer layout; the layers run as
-a Python loop over the stack where the reference scans it.
+The reference's ``models/transformer/model.py`` without its mesh
+(sequence-parallel residual stream, tensor-parallel projections, the
+sequence-sharded decode cache). Parameters keep the reference's stacked
+``[L, ...]`` layer layout; the layers run as a Python loop over the stack
+where the reference scans it.
+
+Training: ``loss_fn`` is the reference's token-chunked cross entropy (each
+chunk's logits recomputed in the backward, ``torch.utils.checkpoint``
+where the reference has ``jax.checkpoint``), ``make_train_step`` its step
+with AdamW and the ``grad_accum`` microbatches (grads summed in bfloat16,
+as the reference sums them). With ``cfg.remat`` and grad on,
+``forward_hidden`` recomputes each layer in the backward, keeping only the
+residual stream between layers. The token embedding's gradient is the
+``embedding_bag_bwd`` kernel (``models/common.py``).
 
 ``prefill`` returns the last token's logits, the pooled, normalized
 document embedding (what ``examples/lm_embedding_compression.py`` feeds to
@@ -21,11 +30,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...configs.base import TransformerConfig
 from ...distributed.partitioning import ParamDef, init_from_schema
-from ..common import dtype_of, pad_to_multiple, rms_norm, \
-    sharded_embedding_lookup
+from ...pytree import tree_map
+from ..common import (dtype_of, pad_to_multiple, rms_norm,
+                      sharded_embedding_lookup, value_and_grad)
 from . import attention as attn_lib
 
 VOCAB_PAD = 256
@@ -147,8 +158,17 @@ def _cast_layer_stack(layers: dict, cfg: TransformerConfig) -> dict:
             for k, v in layers.items()}
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return {k: v[i] for k, v in layers.items()}
+def _unstack(layers: dict) -> list[dict]:
+    """The stack as one dict a layer (views; autograd stacks the layers'
+    gradients once, where indexing would add a zero-filled stack a
+    layer)."""
+    parts = {k: v.unbind(0) for k, v in layers.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def _layer_out(x, lp, cfg: TransformerConfig, positions):
+    return decoder_layer(x, lp, cfg, positions)[0]
 
 
 def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
@@ -157,22 +177,30 @@ def forward_hidden(params, tokens: torch.Tensor, cfg: TransformerConfig, *,
     With ``emit_cache`` the cache is (k, v) ``[L, B, Smax, kh, dh]`` in the
     compute dtype, positions ``< S`` filled and the rest zero, ``Smax =
     max_len or S``; else None. (The reference also returns its MoE
-    statistics, which the dense family does not have.)"""
+    statistics, which the dense family does not have.) With ``cfg.remat``
+    and grad enabled each layer runs under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward, as the reference's
+    ``jax.checkpoint(nothing_saveable)`` recomputes them."""
     _require_dense(cfg)
     b, s = tokens.shape
     cdt = dtype_of(cfg.compute_dtype)
     dev = params["embed"].device
     x = sharded_embedding_lookup(params["embed"], tokens.to(dev), cdt)
     positions = torch.arange(s, device=dev)
-    layers = _cast_layer_stack(params["layers"], cfg)
+    layers = _unstack(_cast_layer_stack(params["layers"], cfg))
     cache = None
     if emit_cache:
         smax = max(max_len or s, s)
         shape = (cfg.n_layers, b, smax, cfg.n_kv_heads, cfg.d_head)
         cache = (torch.zeros(shape, dtype=cdt, device=dev),
                  torch.zeros(shape, dtype=cdt, device=dev))
-    for i in range(cfg.n_layers):
-        x, (k, v) = decoder_layer(x, _layer(layers, i), cfg, positions)
+    remat = cfg.remat and torch.is_grad_enabled() and not emit_cache
+    for i, lp in enumerate(layers):
+        if remat:
+            x = checkpoint(_layer_out, x, lp, cfg, positions,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, (k, v) = decoder_layer(x, lp, cfg, positions)
         if emit_cache:
             cache[0][i, :, :s] = k
             cache[1][i, :, :s] = v
@@ -183,6 +211,92 @@ def _head_matrix(params, cfg: TransformerConfig, cdt) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].to(cdt).T  # [d, Vp]
     return params["head"].to(cdt)
+
+
+# ---------------------------------------------------------------------------
+# Loss / train step
+# ---------------------------------------------------------------------------
+def _xent_chunk(h_c: torch.Tensor, t_c: torch.Tensor, w: torch.Tensor,
+                vocab: int) -> torch.Tensor:
+    """Summed cross entropy of one token chunk: h_c [B, C, d], t_c [B, C],
+    w [d, Vp]. Padded vocab columns (``>= vocab``) are set to -1e30 before
+    the logsumexp; the gold logit is picked by column equality."""
+    logits = (h_c @ w).float()                                # [B, C, Vp]
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(col < vocab, logits,
+                         torch.full_like(logits, -1e30))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.sum(torch.where(col == t_c[..., None], logits,
+                                 torch.zeros_like(logits)), dim=-1)
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    """Token-chunked causal-LM cross entropy: ``(loss, {"xent": loss})``
+    for ``batch["tokens"]`` and ``batch["targets"]`` [B, S]. Chunks of
+    ``cfg.xent_chunk or min(S, 512)`` tokens; each chunk's logits are
+    recomputed in the backward (``torch.utils.checkpoint``), so no more
+    than one chunk's ``[B, C, Vp]`` logits live at once."""
+    _require_dense(cfg)
+    tokens, targets = batch["tokens"], batch["targets"]
+    b, s = tokens.shape
+    cdt = dtype_of(cfg.compute_dtype)
+    hidden, _ = forward_hidden(params, tokens, cfg)
+    w = _head_matrix(params, cfg, cdt)                        # [d, Vp]
+    c = cfg.xent_chunk or min(s, 512)
+    if s % c:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"cross-entropy chunk {c}")
+    targets = targets.to(hidden.device)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        total = total + checkpoint(_xent_chunk, hidden[:, c0:c0 + c],
+                                   targets[:, c0:c0 + c], w, cfg.vocab_size,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    xent = total / torch.full((), b * s, dtype=torch.float32,
+                              device=total.device)
+    return xent, {"xent": xent}
+
+
+def make_train_step(cfg: TransformerConfig, opt):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: loss, grads, one ``opt.update``. With ``cfg.grad_accum =
+    ga > 1`` the batch is split into ``ga`` microbatches along its first
+    dimension; their grads are summed in bfloat16 (the reference's
+    accumulator) and divided by ``ga`` in float32, and the loss and
+    metrics are the microbatches' means."""
+    ga = max(cfg.grad_accum, 1)
+
+    if ga == 1:
+        def train_step(params, opt_state, batch):
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch,
+                                                    cfg)
+            params, opt_state, om = opt.update(grads, opt_state, params)
+            return params, opt_state, {"loss": loss, **metrics, **om}
+
+        return train_step
+
+    def train_step(params, opt_state, batch):
+        micro = {k: v.reshape((ga, v.shape[0] // ga) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.bfloat16,
+                                              device=p.device), params)
+        lsum, msum = None, {}
+        for i in range(ga):
+            mb = {k: v[i] for k, v in micro.items()}
+            (loss, metrics), g = value_and_grad(loss_fn, params, mb, cfg)
+            gsum = tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+            lsum = loss if lsum is None else lsum + loss
+            msum = {k: v if k not in msum else msum[k] + v
+                    for k, v in metrics.items()}
+        n = torch.full((), ga, dtype=torch.float32, device=lsum.device)
+        grads = tree_map(lambda g: g.float() / n, gsum)
+        params, opt_state, om = opt.update(grads, opt_state, params)
+        metrics = {k: v / n for k, v in msum.items()}
+        return params, opt_state, {"loss": lsum / n, **metrics, **om}
+
+    return train_step
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
@@ -245,10 +359,9 @@ def decode_step(params, state: DecodeState, tokens: torch.Tensor,
     dev = params["embed"].device
     x = sharded_embedding_lookup(params["embed"], tokens.to(dev), cdt)
     cur_len = state.length
-    layers = _cast_layer_stack(params["layers"], cfg)
-    for i in range(cfg.n_layers):
-        x, _ = decode_layer(x, _layer(layers, i), state.k[i], state.v[i],
-                            cur_len, cfg)
+    layers = _unstack(_cast_layer_stack(params["layers"], cfg))
+    for i, lp in enumerate(layers):
+        x, _ = decode_layer(x, lp, state.k[i], state.v[i], cur_len, cfg)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     logits = (x @ _head_matrix(params, cfg, cdt)).float()
     embed = _normalize(x.float())

@@ -1,5 +1,7 @@
 """AdamW with decoupled weight decay (the paper's lambda), line for line
-the reference's ``optim/adamw.py`` on dicts of tensors.
+the reference's ``optim/adamw.py`` on trees of tensors (nested dicts, as
+the models' parameters are; ``pytree`` walks them in JAX's order, so the
+global norm sums the leaves in the reference's order).
 
 Decoupled decay ``w -= lr * wd * w`` is the exact gradient-descent step of
 ``0.5 * wd * ||W||_F^2`` rescaled by lr, so it implements the Frobenius
@@ -15,11 +17,13 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..pytree import leaves, tree_map
+
 
 class AdamWState(NamedTuple):
-    step: torch.Tensor  # int32 scalar
-    m: dict[str, torch.Tensor]
-    v: dict[str, torch.Tensor]
+    step: torch.Tensor  # int32 scalar, on the host
+    m: Any              # a tree like the parameters
+    v: Any
 
 
 @dataclass(frozen=True)
@@ -38,12 +42,13 @@ class AdamW:
         return getattr(torch, self.moment_dtype) if self.moment_dtype \
             else p.dtype
 
-    def init(self, params: dict[str, torch.Tensor]) -> AdamWState:
-        zeros = {k: torch.zeros_like(p, dtype=self._mdt(p))
-                 for k, p in params.items()}
-        return AdamWState(step=torch.zeros((), dtype=torch.int32), m=zeros,
-                          v={k: torch.zeros_like(p, dtype=self._mdt(p))
-                             for k, p in params.items()})
+    def init(self, params: Any) -> AdamWState:
+        def zeros(p):
+            return torch.zeros_like(p, dtype=self._mdt(p))
+
+        return AdamWState(step=torch.zeros((), dtype=torch.int32),
+                          m=tree_map(zeros, params),
+                          v=tree_map(zeros, params))
 
     def _lr(self, step: torch.Tensor) -> torch.Tensor:
         if callable(self.lr):
@@ -51,23 +56,22 @@ class AdamW:
         return torch.tensor(self.lr, dtype=torch.float32)
 
     @torch.no_grad()
-    def update(self, grads: dict[str, torch.Tensor], state: AdamWState,
-               params: dict[str, torch.Tensor]
-               ) -> tuple[dict[str, torch.Tensor], AdamWState,
-                          dict[str, torch.Tensor]]:
+    def update(self, grads: Any, state: AdamWState, params: Any
+               ) -> tuple[Any, AdamWState, dict[str, torch.Tensor]]:
         step = state.step + 1
         lr = self._lr(state.step)
         gnorm = global_norm(grads)
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-12), max=1.0)
-            grads = {k: g * scale for k, g in grads.items()}
+            grads = tree_map(lambda g: g * scale, grads)
 
         b1, b2 = self.b1, self.b2
-        m = {k: (b1 * mu.float() + (1 - b1) * grads[k].float()).to(mu.dtype)
-             for k, mu in state.m.items()}
-        v = {k: (b2 * nu.float()
-                 + (1 - b2) * torch.square(grads[k].float())).to(nu.dtype)
-             for k, nu in state.v.items()}
+        m = tree_map(lambda mu, g: (b1 * mu.float()
+                                    + (1 - b1) * g.float()).to(mu.dtype),
+                     state.m, grads)
+        v = tree_map(lambda nu, g: (b2 * nu.float() + (1 - b2)
+                                    * torch.square(g.float())).to(nu.dtype),
+                     state.v, grads)
         stepf = step.float()
         bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32), stepf)
         bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32), stepf)
@@ -75,7 +79,7 @@ class AdamW:
         if self.decay_mask is not None:
             mask = self.decay_mask(params)
         else:
-            mask = {k: p.dim() >= 2 for k, p in params.items()}
+            mask = tree_map(lambda p: p.dim() >= 2, params)
 
         def upd(p, mu, nu, decay_ok):
             mu, nu = mu.float(), nu.float()
@@ -85,15 +89,13 @@ class AdamW:
             decay = decay * float(decay_ok)
             return (p.float() - lr * (u + decay)).to(p.dtype)
 
-        new_params = {k: upd(p, m[k], v[k], mask[k])
-                      for k, p in params.items()}
+        new_params = tree_map(upd, params, m, v, mask)
         metrics = {"grad_norm": gnorm, "lr": lr}
         return new_params, AdamWState(step=step, m=m, v=v), metrics
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    leaves = list(tree.values())
-    if not leaves:
+def global_norm(tree: Any) -> torch.Tensor:
+    xs = leaves(tree)
+    if not xs:
         return torch.zeros((), dtype=torch.float32)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in xs))

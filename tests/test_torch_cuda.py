@@ -22,7 +22,10 @@ by the plain version's keys and must agree with it bit for bit too, and
 the ``pq_adc`` and ``graph_beam_q`` kernels sum in their plain versions'
 trees (the LUT, the m looked-up entries, the SQ8 dot) and must agree bit
 for bit on every input. The ``embedding_bag`` kernel adds a bag's rows in
-its plain version's slot order and must agree with it bit for bit; the
+its plain version's slot order and must agree with it bit for bit, and so
+must its backward, which sums each table row's slots in ascending (b, l)
+(the train steps built on it equal their plain path's and repeat
+themselves bit for bit); the
 ``flash_decode`` kernel splits the KV axis and merges the partial
 softmaxes, so it is held within 1e-5 of the largest magnitude, with no
 floor: its outputs average V over up to 70,001 positions and are small,
@@ -38,10 +41,14 @@ torch.set_num_threads(1)
 torch.set_float32_matmul_precision("highest")
 
 from repro_torch import api  # noqa: E402
-from repro_torch.kernels import (embedding_bag, flash_decode,  # noqa: E402
-                                 graph_beam, graph_beam_q, pq_adc)
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda  # noqa: E402
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels import (embedding_bag, embedding_bag_bwd,  # noqa: E402
+                                 flash_decode, graph_beam, graph_beam_q,
+                                 pq_adc)
+from repro_torch.kernels.embedding_bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.embedding_bag.kernel import (  # noqa: E402
+    embedding_bag_bwd_cuda, embedding_bag_cuda)
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.flash_decode.kernel import flash_decode_cuda  # noqa: E402
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref  # noqa: E402
 from repro_torch.kernels.common import NEG_INF  # noqa: E402
@@ -1041,6 +1048,72 @@ def test_embedding_bag_kernel_limits_and_launch_counter():
 
 
 # ---------------------------------------------------------------------------
+# embedding_bag_bwd: sums each row's slots in ascending (b, l) from zero, as
+# its plain version does, so the two agree bit for bit
+# ---------------------------------------------------------------------------
+def _bwd_case(kind, v, d, b, l, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    grad = torch.randn((b, d), generator=g)
+    ids = torch.randint(0, v, (b, l), generator=g, dtype=torch.int32)
+    lens = torch.randint(1, l + 1, (b,), generator=g, dtype=torch.int32)
+    if kind == "ragged":
+        lens = torch.randint(-1, l + 4, (b,), generator=g, dtype=torch.int32)
+    elif kind == "tied":                  # a few ids, runs of hundreds
+        ids = torch.randint(0, 3, (b, l), generator=g, dtype=torch.int32)
+    elif kind == "clipped":
+        ids = torch.randint(-v, 2 * v, (b, l), generator=g,
+                            dtype=torch.int32)
+    elif kind == "all_pad":
+        lens.zero_()
+    elif kind == "bag_of_one":
+        lens.fill_(1)
+    return grad.cuda(), ids.cuda(), lens.cuda()
+
+
+@needs_card
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("kind,v,d,b,l", [
+    ("ragged", 1000, 256, 513, 50), ("ragged", 13, 5, 7, 3),
+    ("ragged", 97, 24, 33, 37), ("tied", 50, 96, 300, 8),
+    ("clipped", 40, 33, 64, 6), ("all_pad", 20, 8, 6, 4),
+    ("bag_of_one", 128_256, 64, 4096, 1),
+    ("ragged", 10_000_000, 256, 2048, 50)])
+def test_embedding_bag_bwd_kernel_matches_plain_bitwise(kind, v, d, b, l,
+                                                        mode):
+    grad, ids, lens = _bwd_case(kind, v, d, b, l)
+    got = embedding_bag_bwd_cuda(grad, ids, lens, mode, v)
+    torch.cuda.synchronize()
+    want = embedding_bag_bwd_ref(grad, ids, lens, mode, v)
+    assert torch.equal(got, want)
+    if kind == "all_pad":
+        assert not bool(got.any())
+
+
+@needs_card
+def test_embedding_bag_bwd_kernel_limits_and_launch_counter():
+    grad, ids, lens = _bwd_case("ragged", 20, 8, 6, 4)
+    before = embedding_bag_bwd_cuda.launches
+    embedding_bag_bwd(grad, ids, lens, "mean", 20)
+    embedding_bag_bwd(grad[:, :5].contiguous(), ids.long(), lens, "sum", 20)
+    assert embedding_bag_bwd_cuda.launches == before + 2
+    out = embedding_bag_bwd_cuda(grad[:0], ids[:0], lens[:0], "sum", 20)
+    assert embedding_bag_bwd_cuda.launches == before + 2   # nothing to sum
+    assert out.shape == (20, 8) and not bool(out.any())
+    with pytest.raises(ValueError, match="int32"):
+        embedding_bag_bwd_cuda(grad, ids.long(), lens, "sum", 20)
+    with pytest.raises(ValueError, match="float32 gradient"):
+        embedding_bag_bwd_cuda(grad.half(), ids, lens, "sum", 20)
+    with pytest.raises(ValueError, match="CUDA device"):
+        embedding_bag_bwd_cuda(grad.cpu(), ids, lens, "sum", 20)
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag_bwd_cuda(grad, ids, lens, "max", 20)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag_bwd_cuda(grad[:, ::2], ids, lens, "sum", 20)
+    with pytest.raises(ValueError, match="shapes"):
+        embedding_bag_bwd_cuda(grad[:3], ids, lens, "sum", 20)
+
+
+# ---------------------------------------------------------------------------
 # flash_decode: split over the KV axis and merged, so float32 sums in
 # another order than the plain version: within 1e-5 of the largest
 # ---------------------------------------------------------------------------
@@ -1199,6 +1272,99 @@ def test_llama_decode_on_card_answers_like_the_cpu():
         _close(lg.cpu(), lg_cpu)
     assert flash_decode_cuda.launches == before + 4 * cfg.n_layers
     assert int(st.length) == 24
+
+
+def _train_cell(arch, monkeypatch, device):
+    from repro_torch.configs import get_arch, get_shapes
+    from repro_torch.configs.reduce import reduce_cell, reduce_config
+    from repro_torch.models import registry
+
+    cfg, fam = get_arch(arch)
+    small = reduce_config(cfg, fam)
+    monkeypatch.setattr(registry, "get_arch", lambda a: (small, fam))
+    train = [c for c in get_shapes(arch) if c.kind == "train"][0]
+    return registry.build_cell(arch, reduce_cell(train, fam), device)
+
+
+def _plain_bag(monkeypatch):
+    monkeypatch.setattr(bag_ops, "embedding_bag", embedding_bag_ref)
+    monkeypatch.setattr(bag_ops, "embedding_bag_bwd", embedding_bag_bwd_ref)
+
+
+def _flat(tree):
+    from repro_torch.pytree import flatten_with_path
+
+    return dict(flatten_with_path(tree))
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "llama3.2-1b"])
+def test_train_step_on_card_equals_the_plain_path(arch, monkeypatch):
+    """A reduced train step on the card with the kernels gives the bits of
+    the same step with their plain versions (the forward bag, the
+    lookups' and the bag's backward), params and moments."""
+    cell = _train_cell(arch, monkeypatch, "cuda")
+    params = cell.init(0)
+    opt_state = cell.init_opt(params)
+    (batch,) = cell.make_inputs(1)
+    before = embedding_bag_bwd_cuda.launches
+    p1, s1, m1 = cell.fn(params, opt_state, batch)
+    assert embedding_bag_bwd_cuda.launches - before == (
+        3 if arch == "two-tower-retrieval" else 1)
+    with monkeypatch.context() as mp:
+        _plain_bag(mp)
+        p2, s2, m2 = cell.fn(params, opt_state, batch)
+    assert embedding_bag_bwd_cuda.launches - before == (
+        3 if arch == "two-tower-retrieval" else 1)
+    assert torch.equal(m1["loss"], m2["loss"])
+    for a, b in ((p1, p2), (s1.m, s2.m), (s1.v, s2.v)):
+        fa, fb = _flat(a), _flat(b)
+        assert all(torch.equal(fa[k], fb[k]) for k in fa)
+
+
+@needs_card
+@pytest.mark.parametrize("arch", ["two-tower-retrieval", "llama3.2-1b"])
+def test_train_steps_on_card_are_deterministic(arch, monkeypatch):
+    """Two runs of three steps from one state give the same bits (params
+    and moments): no step sums in a varying order."""
+    cell = _train_cell(arch, monkeypatch, "cuda")
+    runs = []
+    for _ in range(2):
+        params = cell.init(0)
+        opt_state = cell.init_opt(params)
+        for step in range(3):
+            (batch,) = cell.make_inputs(step)
+            params, opt_state, _ = cell.fn(params, opt_state, batch)
+        runs.append((_flat(params), _flat(opt_state.m), _flat(opt_state.v)))
+    for a, b in zip(*runs):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+@needs_card
+def test_train_step_on_card_is_close_to_the_cpu(monkeypatch):
+    """The reduced two-tower's loss and gradients on the card against the
+    CPU's: within float32 rounding at compute_dtype float32."""
+    import dataclasses
+
+    from repro_torch.models.recsys import two_tower as tt
+
+    cell = _train_cell("two-tower-retrieval", monkeypatch, "cuda")
+    cfg = dataclasses.replace(cell.cfg, compute_dtype="float32")
+    params = cell.init(0)
+    (batch,) = cell.make_inputs(2)
+    out = []
+    for dev in ("cuda", "cpu"):
+        leaves = {k: v.to(dev).detach().requires_grad_(True)
+                  for k, v in params.items()}
+        loss, _ = tt.loss_fn(leaves, {k: v.to(dev)
+                                      for k, v in batch.items()}, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out.append((loss.detach().cpu(), [g.cpu() for g in grads]))
+    (lc, gc), (lp, gp) = out
+    assert abs(float(lc) - float(lp)) <= 1e-4 * abs(float(lp))
+    for a, b in zip(gc, gp):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            1e-12, float(b.abs().max()))
 
 
 # ---------------------------------------------------------------------------

@@ -40,9 +40,9 @@ from repro.kernels.flash_decode.ref import flash_decode_ref as jax_decode_ref  #
 from repro.kernels.graph_beam_q.ref import graph_beam_q_ref as jax_hop_q_ref  # noqa: E402
 from repro.kernels.pq_adc.ref import pq_adc_ref as jax_pq_ref  # noqa: E402
 from repro.kernels.topk_merge.ref import topk_merge_ref as jax_merge_ref  # noqa: E402
-from repro_torch.kernels import (embedding_bag, flash_decode,  # noqa: E402
-                                 graph_beam_q, l2_topk, pq_adc, rae_encode,
-                                 topk_merge)
+from repro_torch.kernels import (embedding_bag, embedding_bag_bwd,  # noqa: E402
+                                 flash_decode, graph_beam_q, l2_topk,
+                                 pq_adc, rae_encode, topk_merge)
 from repro_torch.kernels.common import NEG_INF, PAD_ID  # noqa: E402
 from repro_torch.kernels.l2_topk.ref import l2_topk_scan_ref  # noqa: E402
 
@@ -588,6 +588,50 @@ def test_embedding_bag_rejects_an_unknown_mode():
     with pytest.raises(ValueError, match="mode"):
         embedding_bag(torch.zeros(3, 2), torch.zeros(1, 2, dtype=torch.int32),
                       torch.ones(1, dtype=torch.int32), "max")
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag_bwd(torch.zeros(1, 2),
+                          torch.zeros(1, 2, dtype=torch.int32),
+                          torch.ones(1, dtype=torch.int32), "max", 3)
+
+
+# the backward (no Pallas counterpart: the reference differentiates its
+# ref.py through XLA): the table's gradient, rows summed in (b, l) order
+@pytest.mark.parametrize("mode", ["mean", "sum"])
+@pytest.mark.parametrize("name", sorted(BAG_CASES))
+def test_embedding_bag_bwd_matches_jax_grad_of_reference_ref(name, mode):
+    tj, tt, ids, lens = _bag_inputs(BAG_CASES[name], "f32")
+    lens[0] = 0                                   # an empty bag
+    grad = _normal(7, (ids.shape[0], tt.shape[1]))
+
+    def f(t):
+        return jnp.sum(jax_bag_ref(t, jnp.asarray(ids), jnp.asarray(lens),
+                                   mode) * grad)
+
+    want = np.asarray(jax.grad(f)(tj))
+    got = embedding_bag_bwd(torch.from_numpy(grad), torch.from_numpy(ids),
+                            torch.from_numpy(lens), mode, tt.shape[0])
+    assert got.dtype == torch.float32 and got.shape == tt.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_embedding_bag_autograd_backward_is_the_bwd_op(dtype):
+    """The bag's ``autograd.Function``: its forward is the op's output bit
+    for bit, its gradient ``embedding_bag_bwd``'s, cast to the table's
+    dtype."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_autograd
+
+    _, tt, ids, lens = _bag_inputs(BAG_CASES["d16"], dtype)
+    grad = torch.from_numpy(_normal(8, (ids.shape[0], tt.shape[1])))
+    table = tt.clone().requires_grad_(True)
+    ids_t, lens_t = torch.from_numpy(ids), torch.from_numpy(lens)
+    out = embedding_bag_autograd(table, ids_t, lens_t, "mean")
+    assert torch.equal(out.detach(), embedding_bag(tt, ids_t, lens_t,
+                                                   "mean"))
+    out.backward(grad)
+    want = embedding_bag_bwd(grad, ids_t, lens_t, "mean", tt.shape[0])
+    assert table.grad.dtype == tt.dtype
+    assert torch.equal(table.grad, want.to(tt.dtype))
 
 
 # ---------------------------------------------------------------------------
